@@ -21,7 +21,15 @@ Phases, in order; any failure raises, so the exit code is non-zero:
   8. at the main path's shapes, each kernel again against its plain
      version (bitwise), then its time beside the plain version's, one
      PyTorch library call where one exists, and the card's bound
-  9. one JSON line listing the kernels
+  9. the probe path (P1-P5, mrcaudiocodec_tpu_torch/probes/): builds the
+     four probe libraries and the --fmad=true control, runs each probe
+     module on the card with the launch counts, asserts P3's
+     classifications and the SASS audit (no FFMA, no .FTZ where the
+     sources allow none; FFMA in the control), holds each of the 15 probe
+     bodies against its plain version (bitwise; v1 within 4 if exp2f/powf
+     differ), and times each beside its plain version, its bound and a
+     library call; P1 and P4 again at 2048 rows
+ 10. one JSON line listing the kernels
 The last line is {"ok": true, "device": {...}}. Without a CUDA card, or
 without the repository beside it, the script exits non-zero and prints no
 result.
@@ -177,7 +185,7 @@ def phase_card():
 def phase_build():
     from mrcaudiocodec_tpu_torch.ops.kernels import build
     t0 = time.perf_counter()
-    logs = build.build(force=True)
+    logs = build.build(build.MAIN, force=True)
     log(f"[build] {len(logs)} libraries in {time.perf_counter() - t0:.1f} s "
         f"({' '.join(build.NVCC_FLAGS)})")
     for name, text in logs.items():
@@ -534,6 +542,247 @@ def phase_times(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The probe path (P1-P5): the TPU probe scripts' kernels as CUDA probes
+# ---------------------------------------------------------------------------
+
+# body -> (probe module, JSON name, source, the TPU kernel it replaces)
+PROBE_BODIES = {
+    "mag_probe": ("quant_g32", "p1_mag_probe", "probe_quant_g32.cu",
+                  "scripts/tpu_quant_g32.py:110 (mag_probe; body "
+                  "_mag_kernel :85)"),
+    "op_probe": ("quant_g32", "p2_op_probe", "probe_quant_g32.cu",
+                 "scripts/tpu_quant_g32.py:177 (phase3; body _op_kernel "
+                 ":149)"),
+    "k1": ("fma_probe", "p3_k1", "probe_fma.cu",
+           "scripts/tpu_fma_probe.py:82 (main; body k1 :69)"),
+    "k2": ("fma_probe", "p3_k2", "probe_fma.cu",
+           "scripts/tpu_fma_probe.py:82 (main; body k2 :72)"),
+    "k3": ("fma_probe", "p3_k3", "probe_fma.cu",
+           "scripts/tpu_fma_probe.py:82 (main; body k3 :75)"),
+    "v1": ("quant_bisect", "p4_v1", "probe_quant_bisect.cu",
+           "scripts/tpu_quant_bisect.py:37 (run; body v1_quantize_only :58)"),
+    "v2": ("quant_bisect", "p4_v2", "probe_quant_bisect.cu",
+           "scripts/tpu_quant_bisect.py:37 (run; body v2_onehot81 :78)"),
+    "v3": ("quant_bisect", "p4_v3", "probe_quant_bisect.cu",
+           "scripts/tpu_quant_bisect.py:37 (run; body v3_maskmm :104)"),
+    "v4": ("quant_bisect", "p4_v4", "probe_quant_bisect.cu",
+           "scripts/tpu_quant_bisect.py:37 (run; body v4_escpair :122)"),
+    "v5": ("quant_bisect", "p4_v5", "probe_quant_bisect.cu",
+           "scripts/tpu_quant_bisect.py:37 (run; body v5_escextra :133)"),
+    "p0": ("primitive_probe", "p5_p0", "probe_primitives.cu",
+           "scripts/tpu_primitive_probe.py:34 (run; body p0_reshape :50)"),
+    "p1": ("primitive_probe", "p5_p1", "probe_primitives.cu",
+           "scripts/tpu_primitive_probe.py:34 (run; body p1_strided :58)"),
+    "p2": ("primitive_probe", "p5_p2", "probe_primitives.cu",
+           "scripts/tpu_primitive_probe.py:34 (run; body p2_roll :66)"),
+    "p3": ("primitive_probe", "p5_p3", "probe_primitives.cu",
+           "scripts/tpu_primitive_probe.py:34 (run; body p3_deint_mm :75)"),
+    "p4": ("primitive_probe", "p5_p4", "probe_primitives.cu",
+           "scripts/tpu_primitive_probe.py:34 (run; body p4_evenmask :87)"),
+}
+# H100 SXM: 64 INT32 lanes per SM against 128 FP32 (Hopper white paper)
+INT32_OPS_PER_S = F32_OPS_PER_S / 2
+V1_TOL = 4      # |diff| allowed per [frame, gain] if exp2f/powf differ
+
+
+def probe_ops(body, args):
+    """(f32 ops, int32 ops) the body does on these inputs, counting each
+    source-level op once (a divide, sqrt, exp2 or pow as one)."""
+    rows = args[0].shape[0]
+    n = args[0].numel()
+    if body == "mag_probe":
+        return 9 * n, 11 * n
+    if body == "op_probe":
+        return 5 * n, 0
+    if body in ("k1", "k2", "k3"):
+        return (2 if body == "k1" else 3) * n, 0
+    if body in ("v1", "v2"):
+        gn = n * args[2].shape[1]
+        return 9 * gn, (4 if body == "v1" else 10) * gn
+    if body == "v3":
+        nb = args[2].shape[2]
+        return rows * (512 * 3 + 512 * nb * 2 + nb), 0
+    if body == "v4":
+        return 2 * n, 3 * n
+    if body == "v5":
+        return 3 * n, 22 * n
+    if body in ("p0", "p1"):
+        return rows * (512 + 511), 0
+    if body == "p2":
+        return rows * (512 + 1023), n
+    if body == "p3":
+        return rows * (2 * 1024 * 512 * 2 + 512 + 511), 0
+    return rows * (1024 + 1023), 6 * n                      # p4
+
+
+def probe_bound(body, args, out):
+    """Least time (ms) and what bounds it: each tensor read and written
+    once over HBM, or the ops over the f32 and int32 instruction rates."""
+    import torch
+    outs = out if isinstance(out, tuple) else (out,)
+    b = sum(t.numel() * t.element_size() for t in args + outs
+            if isinstance(t, torch.Tensor))
+    f, i = probe_ops(body, args)
+    t_b = b / HBM_BYTES_PER_S * 1e3
+    t_o = (f / F32_OPS_PER_S + i / INT32_OPS_PER_S) * 1e3
+    return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def probe_compare(body, got, want):
+    """-> (max |err|, ok, note): bitwise, except v1 (see V1_TOL)."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = max(max_abs_err(g, w) for g, w in zip(got, want))
+    same = all(bits_equal(g, w) for g, w in zip(got, want))
+    if same or body != "v1":
+        return err, same, "bitwise" if same else "DIFFERS"
+    n = int((got[0].cpu() != want[0].cpu()).sum())
+    return err, err <= V1_TOL, f"{n} entries differ (|diff| <= {V1_TOL})"
+
+
+def probe_device_ms(timed, iters: int = 20):
+    """{body: mean device ms per launch} of each (body, kernel, args) from
+    torch.profiler's kernel times (None where it recorded none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _, kernel, args in timed:
+        kernel(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # the trace can miss the first launches of a session: open it with
+        # throw-away work that no body's name matches
+        pad = torch.zeros(1024, device=timed[0][2][0].device)
+        for _ in range(50):
+            pad.add_(1.0)
+        torch.cuda.synchronize()
+        for _, kernel, args in timed:
+            for _ in range(iters):
+                kernel(*args)
+        torch.cuda.synchronize()
+    out = {body: None for body, _, _ in timed}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", 0)
+        for body in out:
+            if f"{body}_kernel" in e.key and t > 0:
+                out[body] = t / 1e3 / e.count
+    log(f"[times] device ms per launch (torch.profiler): {json.dumps(out)}")
+    return out
+
+
+def phase_probes(dev):
+    """Build the probe libraries, drive the probe path (each probe
+    module's run on the card) with the launch counts, hold each of the 15
+    bodies against its plain version, print the SASS audit, and time each
+    body beside its plain version, its bound and a library call."""
+    import torch
+    from mrcaudiocodec_tpu_torch.ops.kernels import build
+    from mrcaudiocodec_tpu_torch.probes import (fma_probe, primitive_probe,
+                                                quant_bisect, quant_g32)
+    mods = {"fma_probe": fma_probe, "quant_g32": quant_g32,
+            "quant_bisect": quant_bisect, "primitive_probe": primitive_probe}
+    t0 = time.perf_counter()
+    logs = build.build(build.PROBES, force=True)
+    log(f"[probes] built {len(logs)} libraries in "
+        f"{time.perf_counter() - t0:.1f} s (probe_fma_contract: --fmad=true)")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "Compiling entry" in line or \
+                    "spill" in line:
+                log(f"[probes] {name}: {line.strip()}")
+
+    # the probe path, counted
+    torch.cuda.synchronize()
+    for m in mods.values():
+        for k in m.launches:
+            m.launches[k] = 0
+    results = {}
+    for name, m in mods.items():
+        log(f"[probes] -- {name}.run('cuda')")
+        results[name] = m.run(dev)
+    torch.cuda.synchronize()
+    launches = {b: mods[meta[0]].launches[b] for b, meta in
+                PROBE_BODIES.items()}
+    log(f"[probes] launches on the probe path: {launches}")
+    for b, n in launches.items():
+        check(n > 0, f"probe body {b} was not launched on the probe path")
+
+    fr = results["fma_probe"]
+    cls = fr["classes"]
+    log(f"[probes] P3 classifications: {json.dumps(cls)}")
+    for row, matches in cls.items():
+        if row.startswith(("torch eager", "port ")):
+            check("plain" in matches, f"P3 {row}: {matches}, not plain")
+    check("fma" in cls["control k1 a*b-c (--fmad=true)"],
+          "the --fmad=true control's k1 shows no contraction")
+    check(not fr["audit_failures"], f"SASS audit: {fr['audit_failures']}")
+    g32 = results["quant_g32"]
+    log(f"[probes] P1 phase 1 (K2 vs plain) mismatches {g32['phase1']}; "
+        f"phase 2 (native IEEE vs rev 4) mismatches {g32['phase2']}; "
+        f"P2 phase 3 (probe vs torch eager) mismatches {g32['phase3']}")
+    check(not any(g32["phase1"].values()), "K2 differs from its plain "
+          "version in P1 phase 1")
+    check(not any(c["plain on the CPU"] for c in g32["phase3"].values()),
+          "P2 on the card differs from its plain version on the CPU")
+    prim = results["primitive_probe"]
+    want = primitive_probe.make_x("cpu").double().sum(1).numpy()
+    for b in ("p0", "p1", "p2", "p3"):
+        check(np.abs(prim[b][:, 0] - want).max() < 1e-2,
+              f"P5 {b} row sums far from the float64 row sums")
+
+    # each body against its plain version, then times
+    stats, timed = {}, []
+    log("[probes] tolerance 0 (bitwise) for every body; v1 allows "
+        f"|diff| <= {V1_TOL} per entry if exp2f/powf differ from torch's")
+    for name, m in mods.items():
+        for body, args in m.body_inputs(dev).items():
+            kernel, plain = m.BODIES[body]
+            timed.append((body, kernel, args))
+            got, ref = kernel(*args), plain(*args)
+            torch.cuda.synchronize()
+            err, ok, note = probe_compare(body, got, ref)
+            log(f"[probes] {body} kernel vs plain at "
+                f"{[tuple(a.shape) for a in args]}: {note}, max |err| {err}")
+            check(ok, f"probe body {body} differs from its plain version")
+            km = cuda_ms(lambda: kernel(*args), 50)
+            pm = cuda_ms(lambda: plain(*args), 5, warmup=1)
+            # one PyTorch call computing the same function: p0-p3 are
+            # row sums of x; no other body has one
+            lm = (cuda_ms(lambda: args[0].sum(1), 50)
+                  if body in ("p0", "p1", "p2", "p3") else None)
+            bound, by = probe_bound(body, args, got)
+            stats[body] = dict(max_abs_err=err, ms=km, plain_ms=pm,
+                               bound_ms=bound, bound_by=by, library_ms=lm)
+            log(f"[times] {body}: kernel {km:.4f} ms, plain {pm:.4f} ms, "
+                f"bound {bound:.4f} ms ({by})"
+                + (f", x.sum(1) {lm:.4f} ms" if lm is not None else ""))
+    # device time per launch from the profiler: at these sizes the CUDA
+    # event time above is the host's launch interval, not the kernel's
+    for body, ms in probe_device_ms(timed).items():
+        stats[body]["device_ms"] = ms
+    # P1 and P4 at one encode chunk's 2048 rows, beside K2's rows
+    timed = []
+    for name in ("quant_g32", "quant_bisect"):
+        m = mods[name]
+        for body, args in m.body_inputs(dev, rows=2048).items():
+            if body == "op_probe":
+                continue
+            kernel, plain = m.BODIES[body]
+            timed.append((body, kernel, args))
+            got = kernel(*args)
+            err, ok, note = probe_compare(body, got, plain(*args))
+            check(ok, f"probe body {body} at 2048 rows differs")
+            km = cuda_ms(lambda: kernel(*args), 20)
+            bound, by = probe_bound(body, args, got)
+            stats[body]["ms_2048_rows"] = km
+            log(f"[times] {body} at [2048, 1024]: kernel {km:.4f} ms, "
+                f"bound {bound:.4f} ms ({by}), {note}")
+    for body, ms in probe_device_ms(timed).items():
+        stats[body]["device_ms_2048_rows"] = ms
+    log(f"[probes] phase done in {time.perf_counter() - t0:.1f} s")
+    return launches, stats
+
+
 def main() -> int:
     try:
         import torch
@@ -559,6 +808,7 @@ def main() -> int:
     launches, stats = phase_full(dev)
     phase_breakdown(dev)
     times = phase_times(dev)
+    probe_launches, probe_stats = phase_probes(dev)
     meta = {
         "fft_stages": ("cuda", "mrcaudiocodec_tpu_torch/csrc/fft_stages.cu",
                        "mrcaudiocodec_tpu/ops/pallas/xmath_kernel.py:93"),
@@ -571,6 +821,12 @@ def main() -> int:
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": errs[name], "checked": True,
                         **times[name]})
+    for body, (_, name, source, replaces) in PROBE_BODIES.items():
+        kernels.append({"name": name, "route": "cuda",
+                        "source": f"mrcaudiocodec_tpu_torch/csrc/{source}",
+                        "replaces": replaces,
+                        "launches": probe_launches[body], "checked": True,
+                        **probe_stats[body]})
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s; "
         f"stats {json.dumps(stats)}")
     print(json.dumps({"kernels": kernels}))

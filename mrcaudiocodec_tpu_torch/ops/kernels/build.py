@@ -8,6 +8,11 @@ a pinned sequence of single-rounded f32 ops, and nvcc would otherwise
 contract a multiply and an add into an FMA — and `--use_fast_math` is
 never set (it flushes subnormals to zero).
 
+The probe path (`probes/`) adds one library per probe source, and
+`probe_fma_contract`: csrc/probe_fma.cu built with `--fmad=true` in place
+of `--fmad=false`, the FMA probe's positive control. Only the FMA probe
+loads it; no normative path names it.
+
 Libraries go into the package's git-ignored `build/` directory at first
 use. `build()` starts one nvcc per source, all at once, and returns each
 compiler log (`-Xptxas -v`: registers, shared memory, spills). A failed
@@ -24,16 +29,24 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
-SOURCES = ("fft_stages", "quant_cost")
+MAIN = ("fft_stages", "quant_cost")
+PROBES = ("probe_fma", "probe_quant_g32", "probe_quant_bisect",
+          "probe_primitives", "probe_fma_contract")
+SOURCES = MAIN + PROBES
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+# library -> (source, flags) where they differ from (library, NVCC_FLAGS)
+_VARIANTS = {
+    "probe_fma_contract": ("probe_fma", tuple(
+        "--fmad=true" if f == "--fmad=false" else f for f in NVCC_FLAGS)),
+}
 
 _libs: dict[str, ctypes.CDLL] = {}
 logs: dict[str, str] = {}
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
@@ -55,14 +68,15 @@ def build(names=SOURCES, force: bool = False) -> dict[str, str]:
     os.makedirs(BUILD, exist_ok=True)
     procs = {}
     for name in names:
-        src = os.path.join(CSRC, f"{name}.cu")
+        source, flags = _VARIANTS.get(name, (name, NVCC_FLAGS))
+        src = os.path.join(CSRC, f"{source}.cu")
         so = _so(name)
         if (not force and os.path.exists(so)
                 and os.path.getmtime(so) >= os.path.getmtime(src)):
             continue
         tmp = f"{so}.tmp.{os.getpid()}"
         procs[name] = (subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, src, "-o", tmp],
+            [nvcc(), *flags, src, "-o", tmp],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp, so)
     for name, (proc, tmp, so) in procs.items():
