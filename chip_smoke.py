@@ -17,10 +17,13 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      encoded and decoded on the card, kernel launch counts of that run,
      then one warm-up and 5 timed runs of each
   7. where the time goes: host-clock ms per encode/decode stage, and the
-     card's busy share with the top kernels (torch.profiler)
+     card's busy share with the top kernels (torch.profiler), with K1's
+     and K2's launches and device ms in one encode and one decode
   8. at the main path's shapes, each kernel again against its plain
-     version (bitwise), then its time beside the plain version's, one
-     PyTorch library call where one exists, and the card's bound
+     version (bitwise), then its time (CUDA events, and the profiler's
+     device time per launch: K1 per FFT layout, K2 per G) beside the
+     plain version's, one PyTorch library call where one exists
+     (torch.fft.fft for K1, events and device time), and the card's bound
   9. the probe path (P1-P5, mrcaudiocodec_tpu_torch/probes/): builds the
      four probe libraries and the --fmad=true control, runs each probe
      module on the card with the launch counts, asserts P3's
@@ -147,6 +150,46 @@ def max_abs_err(a, b) -> float:
     return float((a.double().cpu() - b.double().cpu()).abs().max())
 
 
+def device_ms(fn, iters: int = 20, match=None):
+    """Mean device ms per call of fn() from torch.profiler's kernel times:
+    the kernels whose name holds `match`, or (match None) every kernel fn
+    launched. None if the profiler recorded no kernel time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # the trace can miss the first launches of a session: open it with
+        # fills, which no measured function launches, and leave them out
+        pad = torch.empty(1024, device="cuda")
+        for _ in range(50):
+            pad.fill_(1.0)
+        torch.cuda.synchronize()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", 0)
+        if t > 0 and "FillFunctor" not in e.key and (
+                match is None or match in e.key):
+            total += t
+    return total / 1e3 / iters if total > 0 else None
+
+
+def kernel_device_totals(prof, names):
+    """{name: (launches, device ms)} summed over the profiled run's
+    kernels whose name holds `name`."""
+    out = {n: (0, 0.0) for n in names}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", 0)
+        for n in names:
+            if n in e.key and t > 0:
+                c, ms = out[n]
+                out[n] = (c + e.count, ms + t / 1e3)
+    return out
+
+
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     """Mean device time of fn() over `iters` calls (CUDA events)."""
     import torch
@@ -193,8 +236,9 @@ def phase_build():
             if "registers" in line or "Compiling entry" in line or \
                     "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
-    log("[build] fft_stages: dynamic shared memory per block 2 * lanes * 4 B "
-        "(4096 B at 512 lanes, 8192 B at 1024), set at launch")
+    log("[build] fft_stages: static shared memory per size (ptxas above); "
+        "quant_cost: dynamic shared memory 8448 B per frame of the block "
+        "(1 frame at G >= 4, 4 / G below), set at launch")
 
 
 def phase_kernels(dev):
@@ -451,6 +495,12 @@ def phase_breakdown(dev):
             f"events")
         for key, ms, count in rows[:8]:
             log(f"[profile] {name}:   {ms:9.3f} ms  x{count:<6} {key[:90]}")
+        tot = kernel_device_totals(prof, ("fft_stages_kernel",
+                                          "quant_cost_kernel"))
+        log(f"[profile] {name}: K1 fft_stages {tot['fft_stages_kernel'][0]} "
+            f"launches, {tot['fft_stages_kernel'][1]:.4f} ms device; K2 "
+            f"quant_cost {tot['quant_cost_kernel'][0]} launches, "
+            f"{tot['quant_cost_kernel'][1]:.4f} ms device")
 
 
 def phase_times(dev):
@@ -466,8 +516,11 @@ def phase_times(dev):
     out = {}
 
     # K1: the four FFT layouts one analyze chunk runs (MDCT long/short,
-    # psycho long/short), each over 2048 frame rows
-    k_ms = p_ms = l_ms = bytes_ = ops = 0.0
+    # psycho long/short), each over 2048 frame rows. Event ms hold the
+    # host's launch interval where a kernel is short; device ms (the
+    # profiler's kernel time per launch) do not.
+    k_ms = p_ms = l_ms = kd_ms = ld_ms = bytes_ = ops = 0.0
+    by_shape = {}
     for n in fft_stages.FFT_SIZES:
         shape = (rows, n) if n >= 512 else (rows, 8, n)
         zr = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
@@ -482,23 +535,37 @@ def phase_times(dev):
         km = cuda_ms(lambda: fft_stages.fft_kernel(zr, zi), 50)
         pm = cuda_ms(lambda: fft_stages.fft_plain(zr, zi), 10)
         lm = cuda_ms(lambda: torch.fft.fft(zc, dim=-1), 50)
+        kd = device_ms(lambda: fft_stages.fft_kernel(zr, zi),
+                       match="fft_stages_kernel")
+        ld = device_ms(lambda: torch.fft.fft(zc, dim=-1))
         points = zr.numel()
         stages = n.bit_length() - 1
-        b = points * 16 + 2 * stages * n * 4
+        # each point read and written once, plus the compact twiddle table
+        b = points * 16 + (n - 1) * 8
         o = points // 2 * stages * 10
+        bound = max(b / HBM_BYTES_PER_S, o / F32_OPS_PER_S) * 1e3
         log(f"[times] fft_stages n={n} {shape} (kernel == plain bitwise): "
-            f"kernel {km:.4f} ms, plain "
-            f"{pm:.4f} ms, torch.fft.fft {lm:.4f} ms, bound "
-            f"{max(b / HBM_BYTES_PER_S, o / F32_OPS_PER_S) * 1e3:.4f} ms")
+            f"kernel {km:.4f} ms event, {kd} ms device; plain "
+            f"{pm:.4f} ms; torch.fft.fft {lm:.4f} ms event, {ld} ms device; "
+            f"bound {bound:.4f} ms")
+        by_shape[f"n={n}"] = dict(ms=km, device_ms=kd, library_ms=lm,
+                                  library_device_ms=ld, bound_ms=bound)
         k_ms += km
         p_ms += pm
         l_ms += lm
+        kd_ms += kd or 0.0
+        ld_ms += ld or 0.0
         bytes_ += b
         ops += o
     t_b, t_o = bytes_ / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
-    out["fft_stages"] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+    out["fft_stages"] = dict(ms=k_ms, device_ms=kd_ms, plain_ms=p_ms,
+                             library_ms=l_ms, library_device_ms=ld_ms,
                              bound_ms=max(t_b, t_o),
-                             bound_by="bytes" if t_b >= t_o else "operations")
+                             bound_by="bytes" if t_b >= t_o else "operations",
+                             by_shape=by_shape)
+    log(f"[times] fft_stages, the four layouts summed: kernel {kd_ms:.4f} ms "
+        f"device, torch.fft.fft {ld_ms:.4f} ms device, bound "
+        f"{max(t_b, t_o):.4f} ms")
 
     # K2: the coarse G=32 sweep over 2048 frames (the dominant call), then
     # the fine (G=8, amp 0), refine (G=4) and fallback (G=1) widths, the
@@ -514,6 +581,7 @@ def phase_times(dev):
                           * 10.0 ** rng.uniform(-2, 2, (rows, 1))
                           ).astype(np.float32)).to(dev)
     bt = torch.from_numpy(bt_np).to(dev)
+    by_g = {}
     for g in (32, 8, 4, 1):
         amp_bin = torch.from_numpy(amp_bins[int(g < 8)]).to(dev)
         gains = torch.from_numpy(np.broadcast_to(
@@ -528,18 +596,58 @@ def phase_times(dev):
             x, amp_bin, gains, bt, fs), 20)
         pm = cuda_ms(lambda: quant_cost.payload_bits_plain(
             x, amp_bin, gains, bt, fs), 3, warmup=1)
+        kd = device_ms(lambda: quant_cost.payload_bits_kernel(
+            x, amp_bin, gains, bt, fs), match="quant_cost_kernel")
         b = rows * C.LONG_COEFFS * 8 + rows * (2 * g + 1) * 4
         o = rows * g * C.LONG_COEFFS * 54
         t_b, t_o = b / HBM_BYTES_PER_S * 1e3, o / F32_OPS_PER_S * 1e3
         log(f"[times] quant_cost G={g} [{rows}, {g}] (kernel == plain "
-            f"bitwise): kernel {km:.4f} ms, "
+            f"bitwise): kernel {km:.4f} ms event, {kd} ms device; "
             f"plain {pm:.4f} ms, bound {max(t_b, t_o):.4f} ms "
             f"({'bytes' if t_b >= t_o else 'operations'})")
+        by_g[f"G={g}"] = dict(ms=km, device_ms=kd, bound_ms=max(t_b, t_o))
         if g == 32:
             out["quant_cost"] = dict(
-                ms=km, plain_ms=pm, library_ms=None, bound_ms=max(t_b, t_o),
+                ms=km, device_ms=kd, plain_ms=pm, library_ms=None,
+                bound_ms=max(t_b, t_o),
                 bound_by="bytes" if t_b >= t_o else "operations")
+    out["quant_cost"]["by_g"] = by_g
+    log_instruction_mix()
     return out
+
+
+# SASS mnemonics by kind of work (IMAD and MOV may issue to the f32 pipe)
+MIX_CLASSES = {
+    "f32": ("FADD", "FMUL", "FSETP", "FSEL", "FMNMX", "FRND", "F2I", "I2F"),
+    "int": ("IADD3", "IMAD", "LOP3", "SHF", "LEA", "ISETP", "SEL", "VIMNMX",
+            "VIADD", "VIADDMNMX", "IMNMX", "FLO", "IABS", "PRMT", "MOV",
+            "IADD", "SGXT"),
+    "shared": ("LDS", "STS"),
+    "global": ("LDG", "STG"),
+    "warp": ("SHFL", "REDUX", "MATCH", "VOTE"),
+    "control": ("BRA", "BSSY", "BSYNC", "BAR", "EXIT", "CALL", "RET"),
+}
+
+
+def log_instruction_mix():
+    """Each K1/K2 kernel's SASS instructions (cuobjdump -sass), by class:
+    the static counts the device times are read against (K1's kernels are
+    straight-line code, K2's gain loop is unrolled over a lane's 8 tuples,
+    32 bins)."""
+    from mrcaudiocodec_tpu_torch.ops.kernels import build
+    from mrcaudiocodec_tpu_torch.probes import fma_probe
+    for lib in build.MAIN:
+        text = subprocess.run([fma_probe.cuobjdump(), "-sass",
+                               build._so(lib)], capture_output=True,
+                              text=True, timeout=120, check=True).stdout
+        for func, ops in fma_probe.sass_opcodes(text).items():
+            total = sum(ops.values())
+            mix = {c: sum(ops.get(o, 0) for o in names)
+                   for c, names in MIX_CLASSES.items()}
+            mix["other"] = total - sum(mix.values())
+            top = sorted(ops.items(), key=lambda kv: -kv[1])[:10]
+            log(f"[mix] {func[-48:]}: {total} instructions; {mix}; top "
+                f"{dict(top)}")
 
 
 # ---------------------------------------------------------------------------
@@ -644,28 +752,9 @@ def probe_compare(body, got, want):
 def probe_device_ms(timed, iters: int = 20):
     """{body: mean device ms per launch} of each (body, kernel, args) from
     torch.profiler's kernel times (None where it recorded none)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    for _, kernel, args in timed:
-        kernel(*args)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        # the trace can miss the first launches of a session: open it with
-        # throw-away work that no body's name matches
-        pad = torch.zeros(1024, device=timed[0][2][0].device)
-        for _ in range(50):
-            pad.add_(1.0)
-        torch.cuda.synchronize()
-        for _, kernel, args in timed:
-            for _ in range(iters):
-                kernel(*args)
-        torch.cuda.synchronize()
-    out = {body: None for body, _, _ in timed}
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", 0)
-        for body in out:
-            if f"{body}_kernel" in e.key and t > 0:
-                out[body] = t / 1e3 / e.count
+    out = {body: device_ms(lambda: kernel(*args), iters,
+                           match=f"{body}_kernel")
+           for body, kernel, args in timed}
     log(f"[times] device ms per launch (torch.profiler): {json.dumps(out)}")
     return out
 

@@ -35,21 +35,28 @@ def fft_plain(re, im):
     return xmath.fft_dif(re, im)
 
 
+def compact_twiddles(fft_size: int) -> np.ndarray:
+    """The kernel's twiddle table: the n - 1 distinct stage twiddles of
+    `xmath._fft_stages(n)`, stage by stage (block size m = n, n/2, ..., 2
+    at offset n - m, m/2 values each) -> f32 [n - 1, 2], (re, im) pairs."""
+    stages = xmath._fft_stages(fft_size)
+    return np.ascontiguousarray(np.stack(
+        [np.concatenate([w[0] for w in stages]),
+         np.concatenate([w[1] for w in stages])], -1), np.float32)
+
+
 @functools.lru_cache(maxsize=None)
 def _twiddles(fft_size: int, device: str):
-    """Stacked stage twiddles [log2(n), n] f32 (re, im) on `device`."""
-    tabs = xmath._dif_tables(fft_size)
-    twr = np.ascontiguousarray(np.stack([t[1] for t in tabs]), np.float32)
-    twi = np.ascontiguousarray(np.stack([t[2] for t in tabs]), np.float32)
-    return torch.from_numpy(twr).to(device), torch.from_numpy(twi).to(device)
+    """compact_twiddles(fft_size) as a tensor on `device`."""
+    return torch.from_numpy(compact_twiddles(fft_size)).to(device)
 
 
 @functools.lru_cache(maxsize=1)
 def _fn():
     from .build import lib
     fn = lib("fft_stages").mrc_fft_stages
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
+                                           ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -69,14 +76,13 @@ def fft_kernel(re, im):
     lanes = lanes_for(n)
     if re.numel() % lanes:
         raise ValueError(f"{tuple(re.shape)} does not fill rows of {lanes}")
-    rows = re.numel() // lanes
     out_r = torch.empty_like(re)
     out_i = torch.empty_like(im)
-    if rows == 0:
+    if re.numel() == 0:
         return out_r, out_i
-    twr, twi = _twiddles(n, str(re.device))
-    rc = _fn()(re.data_ptr(), im.data_ptr(), twr.data_ptr(), twi.data_ptr(),
-               out_r.data_ptr(), out_i.data_ptr(), rows, lanes, n,
+    rc = _fn()(re.data_ptr(), im.data_ptr(),
+               _twiddles(n, str(re.device)).data_ptr(),
+               out_r.data_ptr(), out_i.data_ptr(), re.numel() // n, n,
                torch.cuda.current_stream(re.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fft_stages launch failed: cudaError {rc}")

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ... import config as C
+from ... import tables as T
 from ... import xpsy
 from .. import entropy, quantize
 
@@ -34,6 +35,57 @@ def payload_bits_plain(x, amp_bin, gains, bt, fs: int):
     q = quantize.quantize(x[:, None, :], e_bin)
     _, payload = entropy.payload_costs_and_choice(q, bt, fs)
     return payload.sum(-1, dtype=torch.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def band_tuples(fs: int) -> np.ndarray:
+    """The kernel's band map: [5, nb + 1] int32 tuple edges, band b of
+    block type t holding 4-tuples band_tuples[t, b] .. band_tuples[t, b+1]
+    - 1 (`unified_layout(fs)["edges"] / 4`; SHORT in group-major order)."""
+    edges = T.unified_layout(fs)["edges"]
+    if np.any(edges % 4):
+        raise ValueError(f"fs={fs}: a band edge is not a multiple of 4")
+    return np.ascontiguousarray(edges // 4, np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _band_tuples(fs: int, device: str):
+    return torch.from_numpy(band_tuples(fs)).to(device)
+
+
+@functools.lru_cache(maxsize=1)
+def pair_tables() -> tuple[np.ndarray, np.ndarray]:
+    """The kernel's pair tables, [33 * 33] int32 each, at (v0 + 16) * 33 +
+    v1 + 16 for a pair's signed magnitudes v clamped to [-16, 16]:
+    em = CB_ESC length of the pair + its sign bits | CB_MID length << 16;
+    sf = CB_SMALL half-symbol 3 (s0 + 1) + s1 + 1 (s = clamp(v, -1, 1)) |
+    flags << 4 (a magnitude > 0, > 1, > 4: bits 0-2)."""
+    ca = T.code_arrays()
+    e = C.ESC_MAG
+    v0, v1 = (a.ravel() for a in np.meshgrid(np.arange(-e, e + 1),
+                                             np.arange(-e, e + 1),
+                                             indexing="ij"))
+    m0, m1 = np.abs(v0), np.abs(v1)
+    esc = ca["len_esc"][m0 * (e + 1) + m1] + (m0 > 0) + (m1 > 0)
+    mid = ca["len_mid"][(np.clip(v0, -4, 4) + 4) * 9 + np.clip(v1, -4, 4) + 4]
+    top = np.maximum(m0, m1)
+    flags = (top > 0) | ((top > 1) << 1) | ((top > 4) << 2)
+    half = (np.clip(v0, -1, 1) + 1) * 3 + np.clip(v1, -1, 1) + 1
+    return (np.ascontiguousarray(esc | (mid << 16), np.int32),
+            np.ascontiguousarray(half | (flags << 4), np.int32))
+
+
+@functools.lru_cache(maxsize=None)
+def _pair_tables(device: str):
+    return tuple(torch.from_numpy(t).to(device) for t in pair_tables())
+
+
+def check_aligned(name: str, t, nbytes: int = 16):
+    """Raise unless t's data starts on an nbytes boundary (the kernel reads
+    x and amp_bin as float4/int4); any device."""
+    if t.data_ptr() % nbytes:
+        raise ValueError(f"{name}: data pointer {t.data_ptr():#x} is not "
+                         f"{nbytes}-byte aligned")
 
 
 @functools.lru_cache(maxsize=None)
@@ -69,16 +121,19 @@ def payload_bits_kernel(x, amp_bin, gains, bt, fs: int):
             raise ValueError(
                 f"payload_bits_kernel: want contiguous {dtype} {shape} on "
                 f"{x.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    check_aligned("payload_bits_kernel x", x)
+    check_aligned("payload_bits_kernel amp_bin", amp_bin)
     g = gains.shape[-1]
     out = torch.empty((nf, g), dtype=torch.int32, device=x.device)
     if nf == 0 or g == 0:
         return out
     dev = str(x.device)
     tb = entropy.dev_tables(fs, dev)
+    em, sf = _pair_tables(dev)
     rc = _fn()(x.data_ptr(), amp_bin.data_ptr(), gains.data_ptr(),
-               bt.data_ptr(), tb["bin_band"].data_ptr(),
-               tb["len_small"].data_ptr(), tb["len_mid"].data_ptr(),
-               tb["len_esc"].data_ptr(), _consts(dev).data_ptr(),
+               bt.data_ptr(), _band_tuples(fs, dev).data_ptr(),
+               tb["len_small"].data_ptr(), em.data_ptr(), sf.data_ptr(),
+               _consts(dev).data_ptr(),
                out.data_ptr(), nf, g, tb["nb"],
                torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:

@@ -198,6 +198,23 @@ def sass_counts(text: str) -> dict:
     return out
 
 
+def sass_opcodes(text: str) -> dict:
+    """A `cuobjdump -sass` listing -> {function: {mnemonic: n}}, the
+    mnemonic being the opcode before its first dot."""
+    out: dict = {}
+    cur = None
+    for line in text.splitlines():
+        m = _FUNC.search(line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        m = _INSTR.search(line)
+        if m is not None and cur is not None:
+            op = m.group(1).split(".")[0]
+            cur[op] = cur.get(op, 0) + 1
+    return out
+
+
 def cuobjdump() -> str:
     from ..ops.kernels import build
     path = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")

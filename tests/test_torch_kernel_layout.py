@@ -1,0 +1,409 @@
+"""The host side of the port's two CUDA kernels, checked on the CPU.
+
+K1 (csrc/fft_stages.cu): its compact twiddle table against the tiled
+tables of the roll-form FFT, and a numpy model of its schedule (which
+thread holds which 8 points in each stage group, the skewed shared-memory
+addresses, the ping-pong exchange, the bit-reversed read and the coalesced
+store). The model mirrors the kernel's Shape/Group constants and
+`group_base`; run through the ops of `xmath.fft_dif_stages`, it must
+reproduce `fft_plain` bitwise. K2 (csrc/quant_cost.cu): its band map of
+tuple ranges against `unified_layout(fs)["bin_band"]`, its pair tables
+against the code tables, a numpy model of its warp schedule (each lane's
+runs of tuples, the segmented scan over the lanes) against
+`payload_bits_plain`, and the 16-byte alignment check of its wrapper.
+"""
+import numpy as np
+import pytest
+import torch
+
+from mrcaudiocodec_tpu import tables as JT
+from mrcaudiocodec_tpu import xmath as jxmath
+
+from mrcaudiocodec_tpu_torch import config as C
+from mrcaudiocodec_tpu_torch import tables as T
+from mrcaudiocodec_tpu_torch import xmath
+from mrcaudiocodec_tpu_torch.ops.kernels import fft_stages, quant_cost
+
+# ---------------------------------------------------------------------------
+# K1: the schedule, as csrc/fft_stages.cu computes it
+# ---------------------------------------------------------------------------
+
+THREADS = 128                       # kThreads
+
+
+def shape(L):
+    """Shape<L>: (N, threads per FFT, FFTs per block, SKEW, STRIDE,
+    stage groups)."""
+    n = 1 << L
+    tpf = n // 8
+    skew = 5 if L >= 9 else 3
+    return n, tpf, THREADS // tpf, skew, n + (n >> skew), (L + 2) // 3
+
+
+def group(L, g):
+    """Group<L, G>: (first stage bit, stages, owned bits O..O-2 as (O, LO),
+    bits above O)."""
+    top = L - 1 - 3 * g
+    o = max(top, 2)
+    return top, min(3, L - 3 * g), o, o - 2, L - 1 - o
+
+
+def bitrev(v, bits):
+    v = np.asarray(v)
+    r = np.zeros_like(v)
+    for i in range(bits):
+        r |= ((v >> i) & 1) << (bits - 1 - i)
+    return r
+
+
+def points(L, g, t):
+    """[threads, 8] point index of thread t's k-th point in group g."""
+    top, _, o, lo, nh = group(L, g)
+    base = t & ((1 << lo) - 1)
+    if nh:
+        base = base | (bitrev(t >> lo, nh) << (o + 1))
+    return base[:, None] | (np.arange(8) << lo)[None, :]
+
+
+def skewed(L, p):
+    return p + (p >> shape(L)[3])
+
+
+def run_model(zr, zi):
+    """The kernel's schedule on [F, N] f32 tensors with the ops of
+    xmath.fft_dif_stages -> natural-order (re, im). Asserts on the way
+    that every butterfly runs once, after both its operands' previous
+    stage, and that each exchange reads back what the last one wrote."""
+    n = zr.shape[-1]
+    L = n.bit_length() - 1
+    _, tpf, _, _, stride, groups = shape(L)
+    t = np.arange(tpf)
+    tab = torch.from_numpy(fft_stages.compact_twiddles(n))
+    twr, twi = tab[:, 0], tab[:, 1]
+    done = np.zeros(n, np.int64)              # stages applied to each point
+    pairs = set()
+    first = points(L, 0, t)
+    assert np.array_equal(first, t[:, None] + np.arange(8) * tpf)
+    xr, xi = zr[:, first].clone(), zi[:, first].clone()      # [F, tpf, 8]
+    bufs = [[torch.zeros(zr.shape[0], stride) for _ in range(2)]
+            for _ in range(2)]
+    holder = [np.full(stride, -1), np.full(stride, -1)]
+    for g in range(groups):
+        top, stages, o, lo, _ = group(L, g)
+        pts = points(L, g, t)
+        assert sorted(pts.ravel()) == list(range(n))      # one owner each
+        addr = skewed(L, pts)
+        # the kernel's per-group address plus a constant offset of k
+        k_lo = np.arange(8) << lo
+        assert np.array_equal(addr, skewed(L, pts[:, :1]) + skewed(L, k_lo))
+        if g:
+            src = (g - 1) & 1
+            assert np.array_equal(holder[src][addr], pts)
+            xr, xi = bufs[src][0][:, addr], bufs[src][1][:, addr]
+        for s in range(stages):
+            b = top - s
+            lb = b - lo
+            for k in range(8):
+                if k >> lb & 1:
+                    continue
+                c = k | (1 << lb)
+                a_pt, c_pt = pts[:, k], pts[:, c]
+                assert np.array_equal(c_pt, a_pt + (1 << b))
+                stage = L - 1 - b
+                assert (done[a_pt] == stage).all() and (done[c_pt] == stage).all()
+                done[a_pt] += 1
+                done[c_pt] += 1
+                pairs.update((stage, int(p)) for p in a_pt)
+                mask = (1 << b) - 1
+                w = n - (2 << b) + (a_pt & mask)
+                assert np.array_equal(w, n - (2 << b) + (pts[:, 0] & mask)
+                                      + ((k << lo) & mask))
+                ar, ai, br, bi = xr[..., k], xi[..., k], xr[..., c], xi[..., c]
+                top_r, top_i = ar + br, ai + bi
+                bot_r, bot_i = xmath._cmul(ar - br, ai - bi, twr[w], twi[w])
+                xr[..., k], xi[..., k] = top_r, top_i
+                xr[..., c], xi[..., c] = bot_r, bot_i
+        if g < groups - 1:
+            dst = g & 1
+            bufs[dst][0][:, addr], bufs[dst][1][:, addr] = xr, xi
+            holder[dst][addr] = pts
+    assert (done == L).all()
+    every = {(L - 1 - b, int(p)) for b in range(L) for p in range(n)
+             if not p >> b & 1}
+    assert pairs == every
+    # the store: thread t's point bitrev(t)*8 + k is natural position
+    # bitrev3(k)*N/8 + t
+    last = points(L, groups - 1, t)
+    store = bitrev(np.arange(8), 3)[None, :] * tpf + t[:, None]
+    assert np.array_equal(bitrev(last, L), store)
+    out_r, out_i = torch.empty_like(zr), torch.empty_like(zi)
+    out_r[:, store], out_i[:, store] = xr, xi
+    return out_r, out_i
+
+
+def bank_degree(L, g):
+    """Most lanes of one warp on one bank in group g's shared access (the
+    write after it and the read before it use the same addresses)."""
+    n, tpf, fpb, _, stride, _ = shape(L)
+    tid = np.arange(THREADS)
+    f, t = tid // tpf, tid % tpf
+    addr = f[:, None] * stride + skewed(L, points(L, g, t))  # [THREADS, 8]
+    assert len(np.unique(addr)) == addr.size and addr.max() < fpb * stride
+    banks = (addr % 32).reshape(THREADS // 32, 32, 8)
+    return max(np.bincount(banks[w, :, k], minlength=32).max()
+               for w in range(THREADS // 32) for k in range(8))
+
+
+def _bits(a):
+    return a.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("n", fft_stages.FFT_SIZES)
+def test_compact_twiddles_match_tiled_tables(n):
+    tab = fft_stages.compact_twiddles(n)
+    assert tab.shape == (n - 1, 2) and tab.dtype == np.float32
+    twr, twi = tab[:, 0], tab[:, 1]
+    for mask, tr, ti, half in xmath._dif_tables(n):
+        m = 2 * half
+        b = np.flatnonzero(~mask)                  # every butterfly's b
+        idx = n - m + (b % m) - half
+        assert np.array_equal(twr[idx].view(np.int32), tr[b].view(np.int32))
+        assert np.array_equal(twi[idx].view(np.int32), ti[b].view(np.int32))
+    # the j = 0 twiddle of every stage is (1, -0), kept as it is
+    j0 = [n - (n >> s) for s in range(n.bit_length() - 1)]
+    assert (twr[j0] == 1).all() and np.signbit(twi[j0]).all()
+
+
+@pytest.mark.parametrize("n", fft_stages.FFT_SIZES)
+def test_k1_schedule_model_matches_fft_plain(n):
+    rng = np.random.default_rng(n + 1)
+    rows = 12
+    zr = rng.standard_normal((rows, n)).astype(np.float32)
+    zi = rng.standard_normal((rows, n)).astype(np.float32)
+    zr[0], zi[0] = 0.0, 0.0                             # all +0.0
+    zr[1], zi[1] = -0.0, -0.0                           # all -0.0
+    signs = rng.integers(0, 2, (2, n)).astype(bool)
+    zr[2] = np.where(signs[0], -0.0, 0.0)               # mixed signed zeros
+    zi[2] = np.where(signs[1], -0.0, 0.0)
+    sub = np.float32(2.0 ** -140) * rng.integers(-64, 65, (2, 2, n))
+    zr[3:5], zi[3:5] = sub                              # subnormals
+    some = rng.random((rows, n)) < 0.2
+    zr[5:] = np.where(some[5:], -0.0, zr[5:])
+    zi[5:] = np.where(some[5:], np.float32(-1e-40), zi[5:])
+    assert (np.abs(zr[3:5]) < np.finfo(np.float32).tiny).all()
+    zr_t, zi_t = torch.from_numpy(zr), torch.from_numpy(zi)
+    mr, mi = run_model(zr_t, zi_t)
+    pr, pi = fft_stages.fft_plain(zr_t, zi_t)
+    assert torch.equal(_bits(mr), _bits(pr))
+    assert torch.equal(_bits(mi), _bits(pi))
+    ar, ai = jxmath.fft_dif(zr, zi, np)                 # the JAX package's
+    np.testing.assert_array_equal(_bits(mr).numpy(), ar.view(np.int32))
+    np.testing.assert_array_equal(_bits(mi).numpy(), ai.view(np.int32))
+
+
+# most lanes on one bank per stage group, as the .cu's design note says
+BANK_DEGREE = {1024: [1, 1, 1, 1], 512: [1, 2, 1], 128: [2, 1, 1],
+               64: [1, 1]}
+
+
+@pytest.mark.parametrize("n", fft_stages.FFT_SIZES)
+def test_k1_shared_memory_banks(n):
+    L = n.bit_length() - 1
+    got = [bank_degree(L, g) for g in range(shape(L)[5])]
+    assert got == BANK_DEGREE[n]
+    assert got[-1] == 1                          # the bit-reversed read
+    # without the skew the bit-reversed read of N=1024 is one bank
+    t = np.arange(32)
+    assert len(np.unique(points(10, 3, t)[:, 0] % 32)) == 1
+
+
+# ---------------------------------------------------------------------------
+# K2: the band map and the alignment check
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("fs", [32000, 44100, 48000])
+def test_k2_band_map_reproduces_bin_band(fs):
+    lay = T.unified_layout(fs)
+    jlay = JT.unified_layout(fs)
+    tup = quant_cost.band_tuples(fs)
+    nb = lay["nb"]
+    assert tup.shape == (C.N_BLOCK_TYPES, nb + 1) and tup.dtype == np.int32
+    assert nb <= 128
+    for bt in range(C.N_BLOCK_TYPES):
+        e = tup[bt]
+        assert e[0] == 0 and e[-1] == C.LONG_COEFFS // 4
+        assert (np.diff(e) >= 0).all()
+        tuple_band = np.repeat(np.arange(nb), np.diff(e))       # [256]
+        per_bin = np.repeat(tuple_band, 4)
+        np.testing.assert_array_equal(per_bin, lay["bin_band"][bt])
+        np.testing.assert_array_equal(per_bin, jlay["bin_band"][bt])
+        # no tuple across a band edge: all four bins of a tuple in its band
+        quads = lay["bin_band"][bt].reshape(-1, 4)
+        assert (quads == quads[:, :1]).all()
+    # SHORT follows the group-major layout: the 8 groups' bands in turn
+    short = tup[C.SHORT]
+    nbs = lay["nb_short"]
+    for g in range(C.N_SHORT):
+        assert short[g * nbs] == g * C.SHORT_COEFFS // 4
+
+
+def k2_tuple_values(x, amp_bin, gains):
+    """[4, F, G, 256] int64: each 4-tuple's CB_SMALL length, CB_MID and
+    CB_ESC lengths (with sign and escape bits) and flags (mag > 0, > 1, > 4
+    as bits 0-2), from the plain quantizer."""
+    from mrcaudiocodec_tpu_torch.ops import quantize
+    ca = T.code_arrays()
+    e = torch.clamp(gains[:, :, None] - amp_bin[:, None, :], 0, 255)
+    q = quantize.quantize(x[:, None, :], e).numpy().astype(np.int64)
+    mag = np.abs(q)
+    c = (np.clip(q, -1, 1) + 1).reshape(q.shape[:-1] + (256, 4))
+    small = ca["len_small"][((c[..., 0] * 3 + c[..., 1]) * 3 + c[..., 2]) * 3
+                            + c[..., 3]]
+    c2 = (np.clip(q, -4, 4) + 4).reshape(q.shape[:-1] + (512, 2))
+    mid = ca["len_mid"][c2[..., 0] * 9 + c2[..., 1]].reshape(
+        small.shape + (2,)).sum(-1)
+    m2 = np.minimum(mag, 16).reshape(q.shape[:-1] + (512, 2))
+    per_bin = (mag > 0) + T.escape_len(mag)
+    esc = (ca["len_esc"][m2[..., 0] * 17 + m2[..., 1]].reshape(
+        small.shape + (2,)).sum(-1)
+        + per_bin.reshape(small.shape + (4,)).sum(-1))
+    top = mag.reshape(small.shape + (4,)).max(-1)
+    flags = (top > 0) | ((top > 1) << 1) | ((top > 4) << 2)
+    return np.stack([small, mid, esc, flags]).astype(np.int64)
+
+
+def k2_pair_tuple_values(x, amp_bin, gains):
+    """The kernel's way to the same [4, F, G, 256] values: each pair's
+    signed magnitudes clamped to [-16, 16] looked up in quant_cost's pair
+    tables, plus the escape suffix of each magnitude >= 16."""
+    from mrcaudiocodec_tpu_torch.ops import quantize
+    em_tab, sf_tab = quant_cost.pair_tables()
+    small_tab = T.code_arrays()["len_small"]
+    e = torch.clamp(gains[:, :, None] - amp_bin[:, None, :], 0, 255)
+    q = quantize.quantize(x[:, None, :], e).numpy().astype(np.int64)
+    v = (np.clip(q, -16, 16) + 16).reshape(q.shape[:-1] + (256, 2, 2))
+    idx = v[..., 0] * 33 + v[..., 1]                      # [F, G, 256, 2]
+    em = em_tab[idx].sum(-1) + T.escape_len(np.abs(q)).reshape(
+        q.shape[:-1] + (256, 4)).sum(-1)
+    sf = sf_tab[idx]
+    small = small_tab[(sf[..., 0] & 15) * 9 + (sf[..., 1] & 15)]
+    flags = (sf[..., 0] | sf[..., 1]) >> 4
+    return np.stack([small, em >> 16, em & 0xFFFF, flags]).astype(np.int64)
+
+
+def k2_band_cost(s):
+    small, mid, esc, fl = s
+    cost = np.where(((fl & 4) == 0) & (mid < esc), mid, esc)
+    cost = np.where(((fl & 2) == 0) & (small < cost), small, cost)
+    return np.where(fl & 1, cost, 0)
+
+
+def k2_join(a, b):
+    return np.concatenate([a[:3] + b[:3], a[3:] | b[3:]])
+
+
+def k2_model(vals, bt, fs):
+    """csrc/quant_cost.cu's warp schedule on tuple values [4, F, G, 256]:
+    lane l's runs over tuples 8l .. 8l+7, whole bands inside a lane, the
+    segmented scan of the tails over the lanes, the heads' carries."""
+    tup = quant_cost.band_tuples(fs)
+    nb = T.unified_layout(fs)["nb"]
+    out = np.zeros(vals.shape[1:3], np.int64)
+    zero = np.zeros((4, vals.shape[2]), np.int64)
+    for f in range(vals.shape[1]):
+        band = np.repeat(np.arange(nb), np.diff(tup[bt[f]]))
+        tail_band = band[8 * np.arange(32) + 7]
+        tails, heads, firsts, costs = [], [], [], []
+        for lane in range(32):
+            mine = band[8 * lane:8 * lane + 8]
+            run, head, first, cost = zero, zero, True, 0
+            for s in range(8):
+                run = k2_join(run, vals[:, f, :, 8 * lane + s])
+                if s < 7:
+                    end = mine[s + 1] != mine[s]
+                    if end and not first:
+                        cost = cost + k2_band_cost(run)
+                    if end and first:
+                        head = run
+                    first = first and not end
+                    run = zero if end else run
+            tails.append(run)
+            heads.append(head)
+            firsts.append(first)
+            costs.append(cost)
+        for r in range(5):
+            d = 1 << r
+            tails = [k2_join(tails[lane], tails[lane - d])
+                     if lane >= d and tail_band[lane - d] == tail_band[lane]
+                     else tails[lane] for lane in range(32)]
+        for lane in range(32):
+            cont_in = lane > 0 and band[8 * lane - 1] == band[8 * lane]
+            cont_out = lane < 31 and band[8 * lane + 8] == band[8 * lane + 7]
+            if not firsts[lane]:
+                carry = tails[lane - 1] if cont_in else zero
+                costs[lane] = costs[lane] + k2_band_cost(
+                    k2_join(heads[lane], carry))
+            if not cont_out:
+                costs[lane] = costs[lane] + k2_band_cost(tails[lane])
+        out[f] = sum(costs)
+    return out
+
+
+@pytest.mark.parametrize("fs", [32000, 44100, 48000])
+def test_k2_lane_schedule_model_matches_plain(fs):
+    rng = np.random.default_rng(fs // 100)
+    nf, g = 10, 3
+    nb = T.unified_layout(fs)["nb"]
+    x = (rng.standard_normal((nf, C.LONG_COEFFS))
+         * 10.0 ** rng.uniform(-3, 2.5, (nf, 1))).astype(np.float32)
+    x[0] = 0.0
+    bt = (np.arange(nf) % C.N_BLOCK_TYPES).astype(np.int32)
+    amp = rng.integers(0, C.AMP_MAX + 1, (nf, nb)).astype(np.int32)
+    amp_bin = np.take_along_axis(amp, T.unified_layout(fs)["bin_band"][bt], 1)
+    gains = rng.integers(0, 256, (nf, g)).astype(np.int32)
+    xt, at, gt, bt_t = (torch.from_numpy(np.ascontiguousarray(v))
+                        for v in (x, amp_bin, gains, bt))
+    want = quant_cost.payload_bits_plain(xt, at, gt, bt_t, fs).numpy()
+    vals = k2_pair_tuple_values(xt, at, gt)
+    np.testing.assert_array_equal(vals, k2_tuple_values(xt, at, gt))
+    got = k2_model(vals, bt, fs)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_k2_pair_tables_cover_every_magnitude():
+    """Tuples with every magnitude 0..QMAX and both signs: the pair-table
+    values equal the code tables' per-tuple values, and a band's esc and
+    mid sums fit the 16-bit halves of one word."""
+    rng = np.random.default_rng(5)
+    nf = 8
+    amp_bin = np.zeros((nf, C.LONG_COEFFS), np.int32)
+    gains = np.full((nf, 2), 128, np.int32)          # e = 128: step 1
+    mags = np.concatenate([np.arange(0, 40), rng.integers(0, C.QMAX + 1,
+                                                          nf * 1024 - 40)])
+    # the magnitude m needs a with floor(a^(3/4) + magic) = m: take a in
+    # the middle of its interval
+    a = np.maximum(mags - 0.4054 + 0.5, 0) ** (4.0 / 3.0)
+    x = (a * np.where(rng.random(a.shape) < 0.5, -1, 1)).reshape(
+        nf, C.LONG_COEFFS).astype(np.float32)
+    xt, at, gt = (torch.from_numpy(v) for v in (x, amp_bin, gains))
+    vals = k2_pair_tuple_values(xt, at, gt)
+    np.testing.assert_array_equal(vals, k2_tuple_values(xt, at, gt))
+    from mrcaudiocodec_tpu_torch.ops import quantize
+    q = quantize.quantize(xt, torch.full_like(at, 128))
+    assert set(np.abs(q.numpy()).ravel()) >= set(range(0, 40))
+    assert np.abs(q.numpy()).max() == C.QMAX
+    # widest band: 63 tuples; every tuple's esc below 2^16 / 63
+    assert vals[2].max() * 63 < 1 << 16 and vals[1].max() * 63 < 1 << 15
+
+
+def test_k2_alignment_check_rejects_offset_view():
+    buf = torch.zeros(2 * C.LONG_COEFFS + 4)
+    quant_cost.check_aligned("x", buf[:2 * C.LONG_COEFFS].view(2, -1))
+    view = buf[1:2 * C.LONG_COEFFS + 1].view(2, -1)
+    assert view.is_contiguous()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        quant_cost.check_aligned("x", view)
+    ints = torch.zeros(2 * C.LONG_COEFFS + 4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        quant_cost.check_aligned("amp_bin", ints[2:2 * C.LONG_COEFFS + 2])

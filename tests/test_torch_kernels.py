@@ -137,6 +137,154 @@ def test_fft_kernel_matches_plain_on_card(n):
     assert torch.equal(ki.cpu().view(torch.int32), pi.view(torch.int32))
 
 
+def _fft_edge_input(case, shape, rng):
+    """re, im of `shape` for one K1 edge case (no NaN or inf)."""
+    if case == "pos_zero":
+        return np.zeros(shape, np.float32), np.zeros(shape, np.float32)
+    if case == "neg_zero":
+        z = np.full(shape, -0.0, np.float32)
+        return z, z.copy()
+    if case == "mixed_zero":
+        return tuple(np.where(rng.random(shape) < 0.5, -0.0, 0.0
+                              ).astype(np.float32) for _ in range(2))
+    # subnormals, some beside zeros and normal values
+    sub = (rng.integers(-2 ** 20, 2 ** 20, (2,) + shape)
+           * np.float64(2.0 ** -149)).astype(np.float32)
+    mix = rng.standard_normal((2,) + shape).astype(np.float32)
+    pick = rng.random((2,) + shape)
+    out = np.where(pick < 0.6, sub, np.where(pick < 0.8, -0.0, mix))
+    return out[0].astype(np.float32), out[1].astype(np.float32)
+
+
+def _fft_card_vs_plain(zr, zi):
+    zr, zi = torch.from_numpy(zr), torch.from_numpy(zi)
+    before = fft_stages.launches
+    kr, ki = fft_stages.fft(zr.cuda(), zi.cuda())
+    assert fft_stages.launches == before + 1
+    pr, pi = fft_stages.fft_plain(zr, zi)
+    assert torch.equal(kr.cpu().view(torch.int32), pr.view(torch.int32))
+    assert torch.equal(ki.cpu().view(torch.int32), pi.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["pos_zero", "neg_zero", "mixed_zero",
+                                  "subnormal"])
+@pytest.mark.parametrize("n", fft_stages.FFT_SIZES)
+def test_fft_kernel_edge_values_on_card(n, case):
+    _need_card()
+    rng = np.random.default_rng(n * 13 + len(case))
+    _fft_card_vs_plain(*_fft_edge_input(case, _shape(n, 257), rng))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 257, 2600])
+@pytest.mark.parametrize("n", fft_stages.FFT_SIZES)
+def test_fft_kernel_row_counts_on_card(n, rows):
+    """Row counts that leave the last block ragged (1, 257) or span many
+    blocks (2600)."""
+    _need_card()
+    rng = np.random.default_rng(rows + n)
+    shape = _shape(n, rows)
+    _fft_card_vs_plain(rng.standard_normal(shape).astype(np.float32),
+                       rng.standard_normal(shape).astype(np.float32))
+
+
+def _mag_edges(e):
+    """Per magnitude m in (1, 2, 5, 16, 4095): the smallest positive f32
+    whose quantized magnitude at exponent e is >= m, by bisection over the
+    f32 bit patterns with the plain quantizer; with each the f32 below it
+    (magnitude m - 1, or 4094 and 4095 at the clamp)."""
+    from mrcaudiocodec_tpu_torch.ops import quantize
+    want = np.array([1, 2, 5, 16, JC.QMAX])
+    lo = np.zeros(len(want), np.int64)
+    hi = np.full(len(want), 0x7F000000, np.int64)
+    e_bin = torch.full((len(want),), e, dtype=torch.int32)
+    while (lo < hi).any():
+        mid = (lo + hi) // 2
+        x = torch.from_numpy(mid.astype(np.int32).view(np.float32))
+        up = quantize.quantize(x, e_bin).numpy() >= want
+        hi = np.where(up & (lo < hi), mid, hi)
+        lo = np.where(~up & (lo < hi), mid + 1, lo)
+    at = lo.astype(np.int32).view(np.float32)
+    below = (lo - 1).astype(np.int32).view(np.float32)
+    far = at[-1:] * np.float32(4.0)          # past the clamp, a stays finite
+    return np.concatenate([at, below, far])
+
+
+def _quant_edge_input(case, fs, nf, g, rng):
+    """x, amp_bin, gains, bt for one K2 edge case (no NaN or inf)."""
+    lay = JT.unified_layout(fs)
+    nb = lay["nb"]
+    bt = (np.arange(nf) % 5).astype(np.int32)
+    amp = rng.integers(0, JC.AMP_MAX + 1, (nf, nb)).astype(np.int32)
+    gains = rng.integers(0, 256, (nf, g)).astype(np.int32)
+    x = (rng.standard_normal((nf, 1024))
+         * 10.0 ** rng.uniform(-3, 2.5, (nf, 1))).astype(np.float32)
+    if case == "zeros":
+        x[0] = 0.0                                     # an all-zero frame
+        x[1] = -0.0
+        for f in range(2, nf):                          # zero bands
+            band = lay["bin_band"][bt[f]]
+            x[f, (band % 3 == 0)] = 0.0
+    elif case == "mag_edges":
+        amp[:] = 0                                     # e = gain
+        e = int(rng.integers(60, 200))
+        gains[:] = e
+        vals = _mag_edges(e)
+        x = np.resize(vals, (nf, 1024)).astype(np.float32)
+        x = np.where(rng.random((nf, 1024)) < 0.5, -x, x).astype(np.float32)
+        for f in range(nf):
+            x[f] = np.roll(x[f], f)
+    elif case == "tiny":
+        pick = rng.random((nf, 1024))
+        sub = (rng.integers(-2 ** 23 + 1, 2 ** 23, (nf, 1024))
+               * np.float64(2.0 ** -149)).astype(np.float32)
+        x = np.where(pick < 0.4, sub, np.where(pick < 0.6, np.float32(-0.0),
+                                               x)).astype(np.float32)
+        amp[:] = 0
+        gains[:] = rng.integers(0, 40, (nf, g))        # the finest steps
+    elif case == "clip":
+        # gain - amp below 0 and above 255: e clips at 0 and at 255
+        gains = rng.choice(np.array([-40, 0, 3, 255, 260, 400], np.int32),
+                           (nf, g)).astype(np.int32)
+    elif case == "per_bin_amp":
+        # amp_bin that differs inside a tuple: the kernel's per-bin steps
+        return x, rng.integers(0, JC.AMP_MAX + 1, (nf, 1024)).astype(
+            np.int32), gains, bt
+    amp_bin = np.take_along_axis(amp, lay["bin_band"][bt], 1)
+    return x, amp_bin.astype(np.int32), gains, bt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 3, 4, 5, 8, 32])
+@pytest.mark.parametrize("fs", [44100, 48000, 32000])
+@pytest.mark.parametrize("case", ["zeros", "mag_edges", "tiny", "clip",
+                                  "per_bin_amp"])
+def test_quant_kernel_edge_cases_on_card(case, fs, g):
+    """7 frames: blocks of 4 / G frames at G < 4 are left ragged."""
+    _need_card()
+    rng = np.random.default_rng(g * 31 + fs + len(case))
+    args = [torch.from_numpy(np.ascontiguousarray(v)).cuda()
+            for v in _quant_edge_input(case, fs, 7, g, rng)]
+    before = quant_cost.launches
+    got = quant_cost.payload_bits(*args, fs)
+    assert quant_cost.launches == before + 1
+    want = quant_cost.payload_bits_plain(*[a.cpu() for a in args], fs)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_quant_kernel_rejects_unaligned_on_card():
+    _need_card()
+    buf = torch.zeros(2 * 1024 + 4, device="cuda")
+    x = buf[1:2 * 1024 + 1].view(2, 1024)
+    a = torch.zeros(2, 1024, dtype=torch.int32, device="cuda")
+    g = torch.zeros(2, 4, dtype=torch.int32, device="cuda")
+    b = torch.zeros(2, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        quant_cost.payload_bits_kernel(x, a, g, b, 44100)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("g", [32, 8, 4, 1])
 @pytest.mark.parametrize("fs", [44100, 48000, 32000])

@@ -225,6 +225,19 @@ def test_sass_counts_parses_listing():
         {**audit, "probe_primitives": lib(0, 1, "_Zp0_kernel")})
 
 
+def test_sass_opcodes_parses_listing():
+    text = "\n".join([
+        "\t\tFunction : _Zk1",
+        "        /*0070*/                   FMUL R5, R2, R3 ;   /* 0x0 */",
+        "        /*0080*/               @!P0 FMUL.FTZ R5, R0, R3 ;   /* 0x0 */",
+        "        /*0090*/                   LOP3.LUT R5, R5, 0x1, RZ, 0xc0, !PT ;",
+        "\t\tFunction : _Zk2",
+        "        /*0000*/                   BSSY B0, 0x2690 ;",
+    ])
+    assert fma_probe.sass_opcodes(text) == {"_Zk1": {"FMUL": 2, "LOP3": 1},
+                                            "_Zk2": {"BSSY": 1}}
+
+
 # ---------------------------------------------------------------------------
 # P4 (scripts/tpu_quant_bisect.py): jax.jit restatements of v1-v5
 # ---------------------------------------------------------------------------
