@@ -5,25 +5,35 @@
 
 Phases, in order; any failure raises, so the exit code is non-zero:
   1. card: name and power limit (nvidia-smi), CUDA version, capability 9.0
-  2. build: both CUDA kernels from csrc/ (nvcc, -Xptxas -v per kernel)
+  2. build: the main path's three CUDA kernels from csrc/ (nvcc, one
+     process per source started together, -Xptxas -v per kernel)
   3. kernels against their plain PyTorch versions, bitwise:
      K1 fft_stages at all four FFT sizes (card kernel vs plain on the card
      and on the CPU); K2 quant_cost at G in {32, 8, 4, 1}, zero and random
-     amplification, all block types, fs 44100/48000/32000
-  4. goldens g1-g6 encoded on the card against their SHA-256 digests;
-     each decoded on the card and on the CPU, PCM bitwise equal
-  5. a 4 s stereo 128 kbps clip: card stream == CPU stream, decodes equal
-  6. full size: the benchmark clip (30 s stereo 44.1 kHz 128 kbps, int16)
+     amplification, all block types, fs 44100/48000/32000; K3 record_pack
+     on random decisions (every codebook and block type, escapes up to
+     QMAX, all three fs) and a too-small cap, which must raise; then all
+     three on the main path's own inputs, captured at their wrappers: one
+     30 s stereo encode (one chunk of 2586 frame rows), its decode, and one
+     64 x 10 s stereo corpus batch (chunks of 8192 frame rows)
+  4. on those captured inputs, each kernel's time (CUDA events, and the
+     profiler's device time per launch) beside its plain version's, one
+     PyTorch library call where one exists (torch.fft.fft for K1) and the
+     card's bound; the SASS instruction mix of K1, K2 and K3
+  5. goldens g1-g6 encoded on the card (records built by K3) against their
+     SHA-256 digests; each decoded on the card and on the CPU, PCM bitwise
+     equal
+  6. a 4 s stereo 128 kbps clip: the card stream == the host-packed card
+     stream (decisions downloaded, native packer) == the CPU stream;
+     decodes equal
+  7. full size: the benchmark clip (30 s stereo 44.1 kHz 128 kbps, int16)
      encoded and decoded on the card, kernel launch counts of that run,
      then one warm-up and 5 timed runs of each
-  7. where the time goes: host-clock ms per encode/decode stage, and the
-     card's busy share with the top kernels (torch.profiler), with K1's
-     and K2's launches and device ms in one encode and one decode
-  8. at the main path's shapes, each kernel again against its plain
-     version (bitwise), then its time (CUDA events, and the profiler's
-     device time per launch: K1 per FFT layout, K2 per G) beside the
-     plain version's, one PyTorch library call where one exists
-     (torch.fft.fft for K1, events and device time), and the card's bound
+  8. where the time goes: host-clock ms per encode/decode stage (the pack
+     stage as device pack, download and assemble, beside the host-pack path
+     it replaces, with the bytes each downloads), and the card's busy share
+     with the top kernels (torch.profiler), with K1's, K2's and K3's
+     launches and device ms in one encode and one decode
   9. the probe path (P1-P5, mrcaudiocodec_tpu_torch/probes/): builds the
      four probe libraries and the --fmad=true control, runs each probe
      module on the card with the launch counts, asserts P3's
@@ -32,7 +42,16 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      bodies against its plain version (bitwise; v1 within 4 if exp2f/powf
      differ), and times each beside its plain version, its bound and a
      library call; P1 and P4 again at 2048 rows
- 10. one JSON line listing the kernels
+ 10. the corpus path: corpus.encode_batch on 64 clips x 10 s stereo
+     128 kbps (the corpus bench's batch), fused on the card, with the launch
+     counts of that run; every stream == the clip's single-clip card
+     encode, and a 5-clip mixed-length bucket too; wall time (5 timed runs
+     after a warm-up), real-time factor, frames/s, peak device memory and
+     the card's busy share
+ 11. the CLI: python -m mrcaudiocodec_tpu_torch.cli encode, info, decode in
+     subprocesses on a WAV the script writes; the .mrc bytes == codec.encode
+     and the WAV == codec.decode on the card
+ 12. one JSON line listing the kernels
 The last line is {"ok": true, "device": {...}}. Without a CUDA card, or
 without the repository beside it, the script exits non-zero and prints no
 result.
@@ -53,6 +72,8 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (data sheet)
 # and every counted op is its own instruction (an add, a multiply, a
 # compare), so they issue at half that: 132 SMs x 128 lanes x ~1.98 GHz.
 F32_OPS_PER_S = 67e12 / 2
+# H100 SXM: 64 INT32 lanes per SM against 128 FP32 (Hopper white paper)
+INT32_OPS_PER_S = F32_OPS_PER_S / 2
 
 # ---------------------------------------------------------------------------
 # Inputs (copies of the repository's test and benchmark clip generators)
@@ -150,31 +171,47 @@ def max_abs_err(a, b) -> float:
     return float((a.double().cpu() - b.double().cpu()).abs().max())
 
 
-def device_ms(fn, iters: int = 20, match=None):
+def device_ms(fn, iters: int = 20, match=None, per_call: int = 1):
     """Mean device ms per call of fn() from torch.profiler's kernel times:
-    the kernels whose name holds `match`, or (match None) every kernel fn
-    launched. None if the profiler recorded no kernel time."""
+    the kernels whose name holds `match`, `per_call` of them a call, or
+    (match None) every kernel fn launched. It is the recorded launches'
+    mean time times the launches a call, and it is kept only from a trace
+    that holds every launch (iters x per_call of them; for match None a
+    multiple of iters): the trace can drop launches. None if three traces
+    in a row miss some."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        # the trace can miss the first launches of a session: open it with
-        # fills, which no measured function launches, and leave them out
-        pad = torch.empty(1024, device="cuda")
-        for _ in range(50):
-            pad.fill_(1.0)
-        torch.cuda.synchronize()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = 0.0
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", 0)
-        if t > 0 and "FillFunctor" not in e.key and (
-                match is None or match in e.key):
-            total += t
-    return total / 1e3 / iters if total > 0 else None
+    seen = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            # the trace can miss the first launches of a session: open it
+            # with fills, which no measured function launches, and leave
+            # them out
+            pad = torch.empty(1024, device="cuda")
+            for _ in range(50):
+                pad.fill_(1.0)
+            torch.cuda.synchronize()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total, count = 0.0, 0
+        for e in prof.key_averages():
+            t = getattr(e, "self_device_time_total", 0)
+            if t > 0 and "FillFunctor" not in e.key and (
+                    match is None or match in e.key):
+                total += t
+                count += e.count
+        whole = (count > 0 and count % iters == 0 if match is None
+                 else count == iters * per_call)
+        if whole:
+            return total / 1e3 / count * (count // iters if match is None
+                                          else per_call)
+        seen.append(count)
+    log(f"[times] device ms not measured for {match or 'all kernels'}: the "
+        f"traces held {seen} of {iters} x {per_call} launches")
+    return None
 
 
 def kernel_device_totals(prof, names):
@@ -204,6 +241,110 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def full_clip():
+    """The benchmark clip and its config: 30 s stereo 44.1 kHz 128 kbps,
+    int16."""
+    from mrcaudiocodec_tpu_torch.config import CodecConfig
+    return (CodecConfig(fs=44100, channels=2, bitrate=128000),
+            to_i16(make_clip(44100, 30.0, 2)))
+
+
+def kernel_pair(name):
+    """(kernel wrapper, plain version) of K1, K2 or K3 by name."""
+    from mrcaudiocodec_tpu_torch.ops import device_pack
+    from mrcaudiocodec_tpu_torch.ops.kernels import (fft_stages, quant_cost,
+                                                     record_pack)
+    return {"fft_stages": (fft_stages.fft_kernel, fft_stages.fft_plain),
+            "quant_cost": (quant_cost.payload_bits_kernel,
+                           quant_cost.payload_bits_plain),
+            "record_pack": (record_pack.pack_records_kernel,
+                            device_pack.pack_records_plain)}[name]
+
+
+def capture_inputs(run):
+    """Run run() with K1's, K2's and K3's wrappers recording a copy of
+    their arguments -> {key: args} of the first call of each key: K1
+    ("fft_stages", shape), K2 ("quant_cost", (rows, G)), K3
+    ("record_pack", (records,)), in call order."""
+    import torch
+    from mrcaudiocodec_tpu_torch.ops.kernels import (fft_stages, quant_cost,
+                                                     record_pack)
+    seen = {}
+    hooks = ((fft_stages, "fft_kernel",
+              lambda a: ("fft_stages", tuple(a[0].shape))),
+             (quant_cost, "payload_bits_kernel",
+              lambda a: ("quant_cost", tuple(a[2].shape))),
+             (record_pack, "pack_records_kernel",
+              lambda a: ("record_pack", (a[0].shape[0],))))
+    saved = []
+    for mod, attr, key_of in hooks:
+        orig = getattr(mod, attr)
+        saved.append((mod, attr, orig))
+
+        def rec(*args, _orig=orig, _key_of=key_of):
+            key = _key_of(args)
+            if key not in seen:
+                seen[key] = tuple(a.clone() if isinstance(a, torch.Tensor)
+                                  else a for a in args)
+            return _orig(*args)
+        setattr(mod, attr, rec)
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        for mod, attr, orig in saved:
+            setattr(mod, attr, orig)
+    return seen
+
+
+def main_path_inputs(dev):
+    """The inputs K1, K2 and K3 get on the main path, captured at their
+    wrappers: {"encode": one encode of the 30 s stereo clip (one chunk of
+    1293 frames x 2 rows = 2586 frame rows), "decode": its decode (chunks
+    of 1024 and 269 frames x 2 rows), "corpus": one 64 x 10 s stereo batch
+    (128 rows x chunks of 64 frames = 8192 frame rows)}, each as
+    capture_inputs gives it. K2 at G=1 runs only when a frame fits no gain
+    of its refine window; where a run did not reach it, its input is that
+    run's G=4 input with the one candidate GAIN_MAX."""
+    import torch
+    from mrcaudiocodec_tpu_torch import config as C
+    from mrcaudiocodec_tpu_torch import corpus
+    from mrcaudiocodec_tpu_torch.models import codec, encoder
+    cfg, xi = full_clip()
+    box = []
+    out = {"encode": capture_inputs(
+        lambda: box.append(codec.encode(xi, cfg, device=dev)))}
+    out["decode"] = capture_inputs(lambda: codec.decode(box[0], device=dev))
+    clips = corpus._synth_corpus(64, 10.0)
+    out["corpus"] = capture_inputs(
+        lambda: corpus.encode_batch(clips, cfg, device=dev))
+    for where, caps in out.items():
+        for key in [k for k in caps if k[0] == "quant_cost" and k[1][1] == 4]:
+            rows = key[1][0]
+            if ("quant_cost", (rows, 1)) not in caps:
+                x, amp_bin, gains, bt, fs = caps[key]
+                caps[("quant_cost", (rows, 1))] = (
+                    x, amp_bin, torch.full((rows, 1), C.GAIN_MAX,
+                                           dtype=gains.dtype,
+                                           device=gains.device), bt, fs)
+                log(f"[kernels] {where}: K2 at G=1 not reached; its input "
+                    f"is the G=4 input [{rows}, 4] with gain {C.GAIN_MAX}")
+        log(f"[kernels] {where}: kernel inputs captured at "
+            f"{[(k[0], k[1]) for k in caps]}")
+    # the frame rows of one chunk, from the encoder's own chunking
+    rows = {"encode": cfg.channels * encoder.chunk_spans(
+                C.frames_for_samples(xi.shape[0]), cfg.channels)[0][1],
+            "corpus": 2 * len(clips) * encoder.chunk_spans(
+                corpus.FRAME_BUCKET * -(-C.frames_for_samples(
+                    clips[0].shape[0]) // corpus.FRAME_BUCKET),
+                2 * len(clips))[0][1]}
+    for where, r in rows.items():
+        log(f"[kernels] {where}: {r} frame rows a chunk")
+        for key in (("quant_cost", (r, 32)), ("record_pack", (r,))):
+            check(key in out[where], f"{where}: no kernel input at {key}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -238,11 +379,14 @@ def phase_build():
                 log(f"[build] {name}: {line.strip()}")
     log("[build] fft_stages: static shared memory per size (ptxas above); "
         "quant_cost: dynamic shared memory 8448 B per frame of the block "
-        "(1 frame at G >= 4, 4 / G below), set at launch")
+        "(1 frame at G >= 4, 4 / G below), set at launch; record_pack: "
+        "dynamic shared memory of cap bytes (rounded up to 4) a record")
 
 
 def phase_kernels(dev):
-    """Each kernel against its plain version, bitwise. -> max |err| each."""
+    """Each kernel against its plain version, bitwise: on random inputs,
+    then on the main path's own (main_path_inputs). -> (max |err| each,
+    those inputs)."""
     import torch
     from mrcaudiocodec_tpu_torch import config as C
     from mrcaudiocodec_tpu_torch import tables as T
@@ -297,6 +441,68 @@ def phase_kernels(dev):
                 log(f"[kernels] quant_cost fs={fs} G={g} amp={amp_kind}: "
                     f"kernel == plain bitwise: {ok}")
                 check(ok, f"quant_cost fs={fs} G={g} amp={amp_kind} differs")
+    err["record_pack"] = phase_kernels_record_pack(dev, rng)
+    # the three kernels on the inputs the main path gives them
+    inputs = main_path_inputs(dev)
+    for where, caps in inputs.items():
+        for key, args in caps.items():
+            kernel, plain = kernel_pair(key[0])
+            got, want = kernel(*args), plain(*args)
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            ok = all(bits_equal(g, w) for g, w in zip(got, want))
+            err[key[0]] = max([err[key[0]]] + [max_abs_err(g, w) for g, w
+                                                in zip(got, want)])
+            log(f"[kernels] {key[0]} on the {where} path's own input "
+                f"{key[1]}: kernel == plain bitwise: {ok}")
+            check(ok, f"{key[0]} {key[1]} ({where}) differs from its plain "
+                  f"version")
+    return err, inputs
+
+
+def phase_kernels_record_pack(dev, rng):
+    """K3 against its plain version (on the card and on the CPU), bitwise:
+    random decisions at each fs, and a cap one byte too small, which must
+    raise. -> max |err|."""
+    import torch
+    from mrcaudiocodec_tpu_torch import config as C
+    from mrcaudiocodec_tpu_torch.ops import device_pack
+    from mrcaudiocodec_tpu_torch.ops.kernels import record_pack
+    cases = []
+    for fs in (44100, 48000, 32000):
+        d = record_pack.random_decisions(rng, 600, fs)
+        q, cb, bt = np.abs(d[0].astype(np.int64)), d[4], d[3]
+        check(set(bt.tolist()) == set(range(C.N_BLOCK_TYPES))
+              and set(np.unique(cb).tolist()) == set(range(C.N_CODEBOOKS))
+              and q.max() == C.QMAX and (q == C.ESC_MAG).any(),
+              f"random decisions at fs={fs} miss a slot kind")
+        cases.append((f"random decisions fs={fs} (all block types and "
+                      f"codebooks, escapes to {C.QMAX})",
+                      [torch.from_numpy(v).to(dev) for v in d], fs, 4096))
+    err = 0.0
+    for name, d, fs, cap in cases:
+        kr, kn = record_pack.pack_records_kernel(*d, fs, cap)
+        pr, pn = device_pack.pack_records_plain(*d, fs, cap)
+        cr, cn = device_pack.pack_records_plain(*[t.cpu() for t in d], fs,
+                                                cap)
+        torch.cuda.synchronize()
+        ok = (bits_equal(kr, pr) and bits_equal(kn, pn)
+              and bits_equal(kr, cr) and bits_equal(kn, cn))
+        err = max(err, max_abs_err(kr, cr), max_abs_err(kn, cn))
+        log(f"[kernels] record_pack {name}: {d[0].shape[0]} records, cap "
+            f"{cap}, {int(kn.sum())} bytes: kernel == plain (card, CPU) "
+            f"bitwise: {ok}")
+        check(ok, f"record_pack {name} differs from its plain version")
+    need = int(kn.max())                    # the last case's longest record
+    try:
+        record_pack.pack_records_kernel(*d, fs, need - 1)
+        raised = False
+    except ValueError as e:
+        raised = "more than cap" in str(e)
+    log(f"[kernels] record_pack with cap {need - 1} for a {need}-byte "
+        f"record raises: {raised}")
+    check(raised, "record_pack did not raise for a too-small cap")
     return err
 
 
@@ -304,6 +510,8 @@ def phase_goldens(dev):
     import torch
     from mrcaudiocodec_tpu_torch.config import CodecConfig
     from mrcaudiocodec_tpu_torch.models import codec
+    from mrcaudiocodec_tpu_torch.ops.kernels import record_pack
+    record_pack.launches = 0
     for name, fs, ch, br, kw, digest in GOLDEN:
         cfg = CodecConfig(fs=fs, channels=ch, bitrate=br, **kw)
         bs = codec.encode(make_golden_clip(fs, 0.7, ch), cfg, device=dev)
@@ -316,11 +524,15 @@ def phase_goldens(dev):
         check(got == digest, f"golden {name}: {got} != {digest}")
         check(same, f"golden {name}: card and CPU decodes differ")
     torch.cuda.synchronize()
+    log(f"[goldens] records built on the card: {record_pack.launches} "
+        f"record_pack launches for the six encodes")
+    check(record_pack.launches >= len(GOLDEN),
+          "the golden encodes did not pack their records with record_pack")
 
 
 def phase_card_vs_cpu(dev):
     from mrcaudiocodec_tpu_torch.config import CodecConfig
-    from mrcaudiocodec_tpu_torch.models import codec
+    from mrcaudiocodec_tpu_torch.models import codec, encoder, packing
     cfg = CodecConfig(fs=44100, channels=2, bitrate=128000)
     x = make_clip(44100, 4.0, 2, seed=4)
     t0 = time.perf_counter()
@@ -328,12 +540,16 @@ def phase_card_vs_cpu(dev):
     t1 = time.perf_counter()
     bs_cpu = codec.encode(x, cfg, device="cpu")
     t2 = time.perf_counter()
+    dec, nf = encoder.encode_arrays(x, cfg, device=dev)
+    bs_host = packing.pack_stream(dec, nf, x.shape[0], cfg)
     y_card, _ = codec.decode(bs_card, device=dev)
     y_cpu, _ = codec.decode(bs_cpu, device="cpu")
     same_pcm = bits_equal(y_card, y_cpu)
-    log(f"[card-vs-cpu] 4 s stereo: streams equal {bs_card == bs_cpu} "
-        f"({len(bs_card)} bytes; card {t1 - t0:.2f} s, CPU {t2 - t1:.2f} s "
-        f"host clock); decodes bitwise equal {same_pcm}")
+    log(f"[card-vs-cpu] 4 s stereo: device-packed card stream == "
+        f"host-packed card stream {bs_card == bs_host}, == CPU stream "
+        f"{bs_card == bs_cpu} ({len(bs_card)} bytes; card {t1 - t0:.2f} s, "
+        f"CPU {t2 - t1:.2f} s host clock); decodes bitwise equal {same_pcm}")
+    check(bs_card == bs_host, "device-packed and host-packed streams differ")
     check(bs_card == bs_cpu, "card and CPU streams differ")
     check(same_pcm, "card and CPU decodes differ")
 
@@ -341,16 +557,15 @@ def phase_card_vs_cpu(dev):
 def phase_full(dev):
     """Main path at full size; returns (launch counts, stats)."""
     import torch
-    from mrcaudiocodec_tpu_torch.config import CodecConfig
     from mrcaudiocodec_tpu_torch.models import codec
     from mrcaudiocodec_tpu_torch.ops import rd
-    from mrcaudiocodec_tpu_torch.ops.kernels import fft_stages, quant_cost
+    from mrcaudiocodec_tpu_torch.ops.kernels import (fft_stages, quant_cost,
+                                                     record_pack)
     seconds = 30.0
-    cfg = CodecConfig(fs=44100, channels=2, bitrate=128000)
-    xi = to_i16(make_clip(44100, seconds, 2))
+    cfg, xi = full_clip()
     x = xi.astype(np.float32) / np.float32(32768.0)
 
-    kernels = (fft_stages, quant_cost)
+    kernels = (fft_stages, quant_cost, record_pack)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k in kernels:
@@ -372,6 +587,7 @@ def phase_full(dev):
         f"{dec_launch}; RD loop-exit host syncs in the encode: {syncs}")
     check(enc_launch["fft_stages"] > 0, "encode launched no fft_stages")
     check(enc_launch["quant_cost"] > 0, "encode launched no quant_cost")
+    check(enc_launch["record_pack"] > 0, "encode launched no record_pack")
     check(dec_launch["fft_stages"] > 0, "decode launched no fft_stages")
     check(y.shape == x.shape and np.isfinite(y).all(),
           f"decoded shape {y.shape} or values wrong")
@@ -413,12 +629,9 @@ def phase_breakdown(dev):
     busy share from torch.profiler's kernel times over one whole run."""
     import torch
     from mrcaudiocodec_tpu_torch import config as C
-    from mrcaudiocodec_tpu_torch.config import CodecConfig
     from mrcaudiocodec_tpu_torch.models import codec, decoder, encoder, packing
-    from mrcaudiocodec_tpu_torch.ops import reservoir
-    seconds = 30.0
-    cfg = CodecConfig(fs=44100, channels=2, bitrate=128000)
-    xi = to_i16(make_clip(44100, seconds, 2))
+    from mrcaudiocodec_tpu_torch.ops import device_pack, reservoir
+    cfg, xi = full_clip()
     bs = codec.encode(xi, cfg, device=dev)                    # warm-up
     laps = {}
 
@@ -426,13 +639,13 @@ def phase_breakdown(dev):
         torch.cuda.synchronize()
         laps[name] = laps.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
 
-    # the stages of encoder.encode_arrays, called one by one
+    # the stages of encoder.encode, called one by one
     torch.cuda.synchronize()
     t = time.perf_counter()
     nf = C.frames_for_samples(xi.shape[0])
     P = encoder._padded_rows(xi, nf)
     lap("enc.pad", t)
-    spans = encoder.chunk_spans(nf)
+    spans = encoder.chunk_spans(nf, P.shape[0])
     chunks = []
     for f0, s in spans:
         t = time.perf_counter()
@@ -448,13 +661,26 @@ def phase_breakdown(dev):
     decisions = [encoder.decide_chunk(ch, budgets[:, f0:f0 + s], cfg)
                  for ch, (f0, s) in zip(chunks, spans)]
     lap("enc.rd+codebook", t)
+    cap = device_pack.pack_cap_bytes(cfg)
     t = time.perf_counter()
-    arrays = encoder.download(decisions)
+    packed = [encoder.pack_chunk(d, cfg, cap) for d in decisions]
+    lap("enc.device_pack", t)
+    t = time.perf_counter()
+    rec, nbytes = encoder.download_records(packed)
     lap("enc.download", t)
     t = time.perf_counter()
-    packed = packing.pack_stream(arrays, nf, xi.shape[0], cfg)
-    lap("enc.pack", t)
-    check(packed == bs, "the staged encode differs from codec.encode")
+    stream = encoder.assemble_stream(rec, nbytes, range(cfg.channels), nf,
+                                     xi.shape[0], cfg)
+    lap("enc.assemble", t)
+    check(stream == bs, "the staged encode differs from codec.encode")
+    # the host-pack path the last three stages replace, same decisions
+    t = time.perf_counter()
+    arrays = encoder.download(decisions)
+    lap("host.download_decisions", t)
+    t = time.perf_counter()
+    packed_host = packing.pack_stream(arrays, nf, xi.shape[0], cfg)
+    lap("host.pack", t)
+    check(packed_host == bs, "the host-packed stream differs")
     t = time.perf_counter()
     decoder.parse_records(bs)
     lap("dec.parse", t)
@@ -463,6 +689,15 @@ def phase_breakdown(dev):
     lap("dec.total", t)
     log("[breakdown] 30 s stereo, host-clock ms per stage: "
         + json.dumps({k: round(v, 3) for k, v in laps.items()}))
+    sizes = {"decisions": sum(t.numel() * t.element_size()
+                              for d in decisions for t in d),
+             "records": sum(r.numel() * r.element_size()
+                            + n.numel() * n.element_size()
+                            for r, n in packed)}
+    log(f"[breakdown] bytes downloaded per encode: decisions (q int16, amp "
+        f"int8, gain int16, bt int8, cb int8) {sizes['decisions']}; records "
+        f"(rec [R, nf, {cap}] uint8 + nbytes int32) {sizes['records']}; the "
+        f"stream {len(bs)}")
 
     # busy share = device time (the profiler's kernel and copy times) over
     # the best UNprofiled wall time: the profiled run's own wall time
@@ -496,122 +731,114 @@ def phase_breakdown(dev):
         for key, ms, count in rows[:8]:
             log(f"[profile] {name}:   {ms:9.3f} ms  x{count:<6} {key[:90]}")
         tot = kernel_device_totals(prof, ("fft_stages_kernel",
-                                          "quant_cost_kernel"))
+                                          "quant_cost_kernel",
+                                          "record_pack_kernel"))
         log(f"[profile] {name}: K1 fft_stages {tot['fft_stages_kernel'][0]} "
             f"launches, {tot['fft_stages_kernel'][1]:.4f} ms device; K2 "
             f"quant_cost {tot['quant_cost_kernel'][0]} launches, "
-            f"{tot['quant_cost_kernel'][1]:.4f} ms device")
+            f"{tot['quant_cost_kernel'][1]:.4f} ms device; K3 record_pack "
+            f"{tot['record_pack_kernel'][0]} launches, "
+            f"{tot['record_pack_kernel'][1]:.4f} ms device")
 
 
-def phase_times(dev):
-    """Kernel, plain and library times at the main path's shapes, and the
-    card's bound for the same work. Shapes: one encode chunk of 1024
-    frames x 2 channels = 2048 frame rows."""
-    import torch
+def kernel_bound(key, args):
+    """-> (bytes, ops, ops per s) of one launch on these inputs: each input
+    read once, each output written once; the ops each kernel must do."""
     from mrcaudiocodec_tpu_torch import config as C
     from mrcaudiocodec_tpu_torch import tables as T
-    from mrcaudiocodec_tpu_torch.ops.kernels import fft_stages, quant_cost
-    rng = np.random.default_rng(7)
-    rows = 2048
-    out = {}
-
-    # K1: the four FFT layouts one analyze chunk runs (MDCT long/short,
-    # psycho long/short), each over 2048 frame rows. Event ms hold the
-    # host's launch interval where a kernel is short; device ms (the
-    # profiler's kernel time per launch) do not.
-    k_ms = p_ms = l_ms = kd_ms = ld_ms = bytes_ = ops = 0.0
-    by_shape = {}
-    for n in fft_stages.FFT_SIZES:
-        shape = (rows, n) if n >= 512 else (rows, 8, n)
-        zr = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
-                              ).to(dev)
-        zi = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
-                              ).to(dev)
-        zc = torch.complex(zr, zi)
-        kr, ki = fft_stages.fft_kernel(zr, zi)
-        pr, pi = fft_stages.fft_plain(zr, zi)
-        check(bits_equal(kr, pr) and bits_equal(ki, pi),
-              f"fft_stages n={n} {shape} differs from its plain version")
-        km = cuda_ms(lambda: fft_stages.fft_kernel(zr, zi), 50)
-        pm = cuda_ms(lambda: fft_stages.fft_plain(zr, zi), 10)
-        lm = cuda_ms(lambda: torch.fft.fft(zc, dim=-1), 50)
-        kd = device_ms(lambda: fft_stages.fft_kernel(zr, zi),
-                       match="fft_stages_kernel")
-        ld = device_ms(lambda: torch.fft.fft(zc, dim=-1))
-        points = zr.numel()
+    from mrcaudiocodec_tpu_torch.ops import device_pack
+    if key[0] == "fft_stages":
+        points, n = args[0].numel(), args[0].shape[-1]
         stages = n.bit_length() - 1
         # each point read and written once, plus the compact twiddle table
-        b = points * 16 + (n - 1) * 8
-        o = points // 2 * stages * 10
-        bound = max(b / HBM_BYTES_PER_S, o / F32_OPS_PER_S) * 1e3
-        log(f"[times] fft_stages n={n} {shape} (kernel == plain bitwise): "
-            f"kernel {km:.4f} ms event, {kd} ms device; plain "
-            f"{pm:.4f} ms; torch.fft.fft {lm:.4f} ms event, {ld} ms device; "
-            f"bound {bound:.4f} ms")
-        by_shape[f"n={n}"] = dict(ms=km, device_ms=kd, library_ms=lm,
-                                  library_device_ms=ld, bound_ms=bound)
-        k_ms += km
-        p_ms += pm
-        l_ms += lm
-        kd_ms += kd or 0.0
-        ld_ms += ld or 0.0
-        bytes_ += b
-        ops += o
-    t_b, t_o = bytes_ / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
-    out["fft_stages"] = dict(ms=k_ms, device_ms=kd_ms, plain_ms=p_ms,
-                             library_ms=l_ms, library_device_ms=ld_ms,
-                             bound_ms=max(t_b, t_o),
-                             bound_by="bytes" if t_b >= t_o else "operations",
-                             by_shape=by_shape)
-    log(f"[times] fft_stages, the four layouts summed: kernel {kd_ms:.4f} ms "
-        f"device, torch.fft.fft {ld_ms:.4f} ms device, bound "
-        f"{max(t_b, t_o):.4f} ms")
+        return (points * 16 + (n - 1) * 8, points // 2 * stages * 10,
+                F32_OPS_PER_S)
+    if key[0] == "quant_cost":
+        rows, g = args[2].shape
+        return (rows * C.LONG_COEFFS * 8 + rows * (2 * g + 1) * 4,
+                rows * g * C.LONG_COEFFS * 54, F32_OPS_PER_S)
+    # K3: q, amp, cb, gain, bt in; the records and nbytes out. Integer work
+    # these records need: a shift and an OR per bit-carrying slot
+    fs, cap = args[5], args[6]
+    nf, nb = args[0].shape[0], T.unified_layout(fs)["nb"]
+    _, lens, _ = device_pack.slots(*args[:5], fs)
+    return (nf * (2 * C.LONG_COEFFS + 2 * nb + 2 + 1) + nf * (cap + 4),
+            2 * int((lens > 0).sum()), INT32_OPS_PER_S)
 
-    # K2: the coarse G=32 sweep over 2048 frames (the dominant call), then
-    # the fine (G=8, amp 0), refine (G=4) and fallback (G=1) widths, the
-    # last two with amplified scale factors as in outer iterations 2+
-    fs = 44100
-    lay = T.unified_layout(fs)
-    bt_np = (np.arange(rows) % C.N_BLOCK_TYPES).astype(np.int32)
-    amp = rng.integers(0, C.AMP_MAX + 1, (rows, lay["nb"]))
-    amp_bins = {0: np.zeros((rows, C.LONG_COEFFS), np.int32),
-                1: np.take_along_axis(amp, lay["bin_band"][bt_np], 1
-                                      ).astype(np.int32)}
-    x = torch.from_numpy((rng.standard_normal((rows, C.LONG_COEFFS))
-                          * 10.0 ** rng.uniform(-2, 2, (rows, 1))
-                          ).astype(np.float32)).to(dev)
-    bt = torch.from_numpy(bt_np).to(dev)
-    by_g = {}
-    for g in (32, 8, 4, 1):
-        amp_bin = torch.from_numpy(amp_bins[int(g < 8)]).to(dev)
-        gains = torch.from_numpy(np.broadcast_to(
-            np.arange(0, 256, 256 // g, dtype=np.int32)[:g], (rows, g)
-        ).copy()).to(dev)
-        check(bits_equal(quant_cost.payload_bits_kernel(x, amp_bin, gains, bt,
-                                                        fs),
-                         quant_cost.payload_bits_plain(x, amp_bin, gains, bt,
-                                                       fs)),
-              f"quant_cost G={g} [{rows}, {g}] differs from its plain version")
-        km = cuda_ms(lambda: quant_cost.payload_bits_kernel(
-            x, amp_bin, gains, bt, fs), 20)
-        pm = cuda_ms(lambda: quant_cost.payload_bits_plain(
-            x, amp_bin, gains, bt, fs), 3, warmup=1)
-        kd = device_ms(lambda: quant_cost.payload_bits_kernel(
-            x, amp_bin, gains, bt, fs), match="quant_cost_kernel")
-        b = rows * C.LONG_COEFFS * 8 + rows * (2 * g + 1) * 4
-        o = rows * g * C.LONG_COEFFS * 54
-        t_b, t_o = b / HBM_BYTES_PER_S * 1e3, o / F32_OPS_PER_S * 1e3
-        log(f"[times] quant_cost G={g} [{rows}, {g}] (kernel == plain "
-            f"bitwise): kernel {km:.4f} ms event, {kd} ms device; "
-            f"plain {pm:.4f} ms, bound {max(t_b, t_o):.4f} ms "
-            f"({'bytes' if t_b >= t_o else 'operations'})")
-        by_g[f"G={g}"] = dict(ms=km, device_ms=kd, bound_ms=max(t_b, t_o))
-        if g == 32:
-            out["quant_cost"] = dict(
-                ms=km, device_ms=kd, plain_ms=pm, library_ms=None,
-                bound_ms=max(t_b, t_o),
+
+def time_input(where, key, args):
+    """Event ms, device ms, plain ms and the bound of one kernel input (and
+    torch.fft.fft's times beside K1)."""
+    import torch
+    kernel, plain = kernel_pair(key[0])
+    r = {"ms": cuda_ms(lambda: kernel(*args), 50),
+         "device_ms": device_ms(lambda: kernel(*args),
+                                match=f"{key[0]}_kernel"),
+         "plain_ms": cuda_ms(lambda: plain(*args), 3, warmup=1)}
+    b, o, rate = kernel_bound(key, args)
+    t_b, t_o = b / HBM_BYTES_PER_S * 1e3, o / rate * 1e3
+    r.update(bound_ms=max(t_b, t_o), bytes=b, ops=o,
+             bound_by="bytes" if t_b >= t_o else "operations")
+    lib = ""
+    if key[0] == "fft_stages":
+        zc = torch.complex(args[0], args[1])
+        r["library_ms"] = cuda_ms(lambda: torch.fft.fft(zc, dim=-1), 50)
+        r["library_device_ms"] = device_ms(lambda: torch.fft.fft(zc, dim=-1))
+        lib = (f"; torch.fft.fft {r['library_ms']:.4f} ms event, "
+               f"{r['library_device_ms']} ms device")
+    log(f"[times] {key[0]} {where} {key[1]}: kernel {r['ms']:.4f} ms event, "
+        f"{r['device_ms']} ms device; plain {r['plain_ms']:.4f} ms; bound "
+        f"{r['bound_ms']:.5f} ms ({b} bytes, {o} ops; {r['bound_by']})"
+        + lib)
+    return r
+
+
+def phase_times(dev, inputs):
+    """Kernel, plain and library times on the main path's own inputs
+    (main_path_inputs), beside the card's bound for the same work. The
+    kernels line takes the 30 s clip's encode: K1 summed over the four FFT
+    layouts of its one chunk (2586 frame rows), K2 at G=32 over those rows,
+    K3 on its 2586 records. Every other captured input (K2 at G=8/4/1, the
+    decode's FFTs, the 64-clip batch's chunk of 8192 frame rows) is timed
+    too and kept under by_shape. Event ms hold the host's launch interval
+    where a kernel is short (and K3's read of max(nbytes)); device ms (the
+    profiler's kernel time per launch) do not."""
+    out = {}
+    for name in ("fft_stages", "quant_cost", "record_pack"):
+        by_shape = {}
+        for where, caps in inputs.items():
+            for key, args in caps.items():
+                if key[0] == name:
+                    by_shape[f"{where} {key[1]}"] = time_input(where, key,
+                                                               args)
+        enc = {k: v for k, v in by_shape.items() if k.startswith("encode")}
+        if name == "fft_stages":
+            # one encode's four launches, summed; its bound from their
+            # summed bytes and ops
+            t_b = sum(v["bytes"] for v in enc.values()) / HBM_BYTES_PER_S
+            t_o = sum(v["ops"] for v in enc.values()) / F32_OPS_PER_S
+            dev_ms = [v["device_ms"] for v in enc.values()]
+            lib_dev = [v["library_device_ms"] for v in enc.values()]
+            line = dict(
+                ms=sum(v["ms"] for v in enc.values()),
+                device_ms=None if None in dev_ms else sum(dev_ms),
+                plain_ms=sum(v["plain_ms"] for v in enc.values()),
+                library_ms=sum(v["library_ms"] for v in enc.values()),
+                library_device_ms=None if None in lib_dev else sum(lib_dev),
+                bound_ms=max(t_b, t_o) * 1e3,
                 bound_by="bytes" if t_b >= t_o else "operations")
-    out["quant_cost"]["by_g"] = by_g
+            log(f"[times] fft_stages, the encode's {len(enc)} layouts "
+                f"summed: kernel {line['device_ms']} ms device, "
+                f"torch.fft.fft {line['library_device_ms']} ms device, "
+                f"bound {line['bound_ms']:.4f} ms")
+        else:
+            first = next(v for k, v in enc.items()
+                         if name == "record_pack" or k.endswith(", 32)"))
+            line = {k: first[k] for k in ("ms", "device_ms", "plain_ms",
+                                          "bound_ms", "bound_by")}
+            line["library_ms"] = None
+        line["by_shape"] = by_shape
+        out[name] = line
     log_instruction_mix()
     return out
 
@@ -630,10 +857,10 @@ MIX_CLASSES = {
 
 
 def log_instruction_mix():
-    """Each K1/K2 kernel's SASS instructions (cuobjdump -sass), by class:
-    the static counts the device times are read against (K1's kernels are
-    straight-line code, K2's gain loop is unrolled over a lane's 8 tuples,
-    32 bins)."""
+    """Each K1/K2/K3 kernel's SASS instructions (cuobjdump -sass), by
+    class: the static counts the device times are read against (K1's
+    kernels are straight-line code, K2's gain loop is unrolled over a
+    lane's 8 tuples, 32 bins, K3's over a thread's 4 pairs)."""
     from mrcaudiocodec_tpu_torch.ops.kernels import build
     from mrcaudiocodec_tpu_torch.probes import fma_probe
     for lib in build.MAIN:
@@ -689,8 +916,6 @@ PROBE_BODIES = {
     "p4": ("primitive_probe", "p5_p4", "probe_primitives.cu",
            "scripts/tpu_primitive_probe.py:34 (run; body p4_evenmask :87)"),
 }
-# H100 SXM: 64 INT32 lanes per SM against 128 FP32 (Hopper white paper)
-INT32_OPS_PER_S = F32_OPS_PER_S / 2
 V1_TOL = 4      # |diff| allowed per [frame, gain] if exp2f/powf differ
 
 
@@ -872,6 +1097,120 @@ def phase_probes(dev):
     return launches, stats
 
 
+def phase_corpus(dev):
+    """The corpus path at its bench size: 64 clips x 10 s stereo 128 kbps
+    fused on the card, the launch counts of that run, each stream against
+    the clip's single-clip encode, a mixed-length bucket, then timings.
+    -> (launches, stats)."""
+    import torch
+    from mrcaudiocodec_tpu_torch import corpus
+    from mrcaudiocodec_tpu_torch.config import CodecConfig, frames_for_samples
+    from mrcaudiocodec_tpu_torch.models import codec
+    from mrcaudiocodec_tpu_torch.ops.kernels import (fft_stages, quant_cost,
+                                                     record_pack)
+    n_clips, seconds = 64, 10.0
+    cfg = CodecConfig(fs=44100, channels=2, bitrate=128000)
+    clips = corpus._synth_corpus(n_clips, seconds)
+    kernels = (fft_stages, quant_cost, record_pack)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    outs = corpus.encode_batch(clips, cfg, device=dev)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k.__name__.rsplit(".", 1)[-1]: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[corpus] {n_clips} x {seconds:g} s stereo 128 kbps fused on the "
+        f"card: first run {first_ms:.1f} ms, launches {launches}, peak "
+        f"device memory {peak} B")
+    for name, n in launches.items():
+        check(n > 0, f"the corpus batch launched no {name}")
+    same = [o == codec.encode(x, cfg, device=dev) for o, x in zip(outs, clips)]
+    log(f"[corpus] streams equal to single-clip card encodes: "
+        f"{sum(same)}/{len(clips)}")
+    check(all(same), "a fused corpus stream differs from its clip's encode")
+    mixed = [corpus._synth_corpus(1, sec, seed=100 + i)[0]
+             for i, sec in enumerate([0.25, 0.33, 0.41, 0.5, 0.62])]
+    mo = corpus.encode_batch(mixed, cfg, device=dev)
+    ok = all(mo[i] == codec.encode(x, cfg, device=dev)
+             for i, x in enumerate(mixed))
+    log(f"[corpus] mixed-length bucket (0.25-0.62 s, 5 clips) == per-clip "
+        f"encodes: {ok}")
+    check(ok, "a mixed-length bucket stream differs from per-clip encodes")
+
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        corpus.encode_batch(clips, cfg, device=dev)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        corpus.encode_batch(clips, cfg, device=dev)
+        torch.cuda.synchronize()
+    busy = sum(getattr(e, "self_device_time_total", 0)
+               for e in prof.key_averages()) / 1e3
+    tot = kernel_device_totals(prof, ("fft_stages_kernel",
+                                      "quant_cost_kernel",
+                                      "record_pack_kernel"))
+    audio = sum(x.shape[0] for x in clips) / cfg.fs
+    frames = sum(frames_for_samples(x.shape[0]) for x in clips) * cfg.channels
+    best = min(walls)
+    stats = {"clips": len(clips), "audio_seconds": audio, "wall_ms": walls,
+             "best_ms": best, "median_ms": float(np.median(walls)),
+             "realtime_factor": audio * 1e3 / best,
+             "frames_per_second": frames * 1e3 / best,
+             "peak_bytes": peak, "device_ms": busy,
+             "busy_share": busy / best if busy else None,
+             "launches": launches}
+    log(f"[corpus] wall ms {walls} (best {best:.1f}, median "
+        f"{stats['median_ms']:.1f}); RTF {stats['realtime_factor']:.1f}x; "
+        f"{stats['frames_per_second']:.0f} frames/s; device time "
+        f"{busy:.2f} ms in one profiled batch, busy share "
+        f"{stats['busy_share']}; K1 {tot['fft_stages_kernel']}, K2 "
+        f"{tot['quant_cost_kernel']}, K3 {tot['record_pack_kernel']} "
+        f"(launches, device ms)")
+    return launches, stats
+
+
+def phase_cli(dev):
+    """The port's CLI in subprocesses: encode, info, decode a 3 s stereo
+    WAV; the .mrc equals codec.encode's and the WAV codec.decode's."""
+    import os
+    import tempfile
+    from mrcaudiocodec_tpu_torch import audiofile
+    from mrcaudiocodec_tpu_torch.config import CodecConfig
+    from mrcaudiocodec_tpu_torch.models import codec
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        wav, mrc, out = (os.path.join(tmp, f) for f in
+                         ("in.wav", "a.mrc", "out.wav"))
+        audiofile.write_wav(wav, make_clip(44100, 3.0, 2, seed=3), 44100)
+        for argv in (["encode", wav, mrc, "--bitrate", "128", "--device",
+                      dev], ["info", mrc], ["decode", mrc, out, "--device",
+                                            dev]):
+            res = subprocess.run(
+                [sys.executable, "-m", "mrcaudiocodec_tpu_torch.cli", *argv],
+                cwd=root, capture_output=True, text=True, timeout=300)
+            log(f"[cli] {argv[0]}: exit {res.returncode}; "
+                + " | ".join(res.stdout.strip().splitlines()))
+            check(res.returncode == 0, f"cli {argv[0]} failed: {res.stderr}")
+        xi, fs = audiofile.read_wav(wav, raw_int16=True)
+        with open(mrc, "rb") as f:
+            data = f.read()
+        bs = codec.encode(xi, CodecConfig(fs=fs, channels=2, bitrate=128000),
+                          device=dev)
+        y, _ = audiofile.read_wav(out, raw_int16=True)
+        want, _ = codec.decode(bs, device=dev, pcm_dtype="int16")
+        log(f"[cli] .mrc == codec.encode on the card: {data == bs}; WAV == "
+            f"codec.decode on the card: {bits_equal(y, want)}")
+        check(data == bs, "the CLI's stream differs from codec.encode's")
+        check(bits_equal(y, want), "the CLI's WAV differs from codec.decode")
+
+
 def main() -> int:
     try:
         import torch
@@ -891,18 +1230,25 @@ def main() -> int:
     dev = "cuda"
     smi = phase_card()
     phase_build()
-    errs = phase_kernels(dev)
+    errs, inputs = phase_kernels(dev)
+    times = phase_times(dev, inputs)
+    del inputs                  # out of the peak memory of later phases
+    torch.cuda.empty_cache()
     phase_goldens(dev)
     phase_card_vs_cpu(dev)
     launches, stats = phase_full(dev)
     phase_breakdown(dev)
-    times = phase_times(dev)
     probe_launches, probe_stats = phase_probes(dev)
+    _, corpus_stats = phase_corpus(dev)
+    phase_cli(dev)
     meta = {
         "fft_stages": ("cuda", "mrcaudiocodec_tpu_torch/csrc/fft_stages.cu",
                        "mrcaudiocodec_tpu/ops/pallas/xmath_kernel.py:93"),
         "quant_cost": ("cuda", "mrcaudiocodec_tpu_torch/csrc/quant_cost.cu",
                        "mrcaudiocodec_tpu/ops/pallas/quant_kernel.py:235"),
+        "record_pack": ("cuda", "mrcaudiocodec_tpu_torch/csrc/record_pack.cu",
+                        "mrcaudiocodec_tpu/ops/device_pack.py:181 "
+                        "(pack_records_device, XLA; no pallas_call)"),
     }
     kernels = []
     for name, (route, source, replaces) in meta.items():
@@ -917,7 +1263,7 @@ def main() -> int:
                         "launches": probe_launches[body], "checked": True,
                         **probe_stats[body]})
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s; "
-        f"stats {json.dumps(stats)}")
+        f"stats {json.dumps(stats)}; corpus {json.dumps(corpus_stats)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

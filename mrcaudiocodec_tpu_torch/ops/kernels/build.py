@@ -29,7 +29,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
-MAIN = ("fft_stages", "quant_cost")
+MAIN = ("fft_stages", "quant_cost", "record_pack")
 PROBES = ("probe_fma", "probe_quant_g32", "probe_quant_bisect",
           "probe_primitives", "probe_fma_contract")
 SOURCES = MAIN + PROBES

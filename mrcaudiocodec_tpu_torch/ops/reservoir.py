@@ -52,9 +52,10 @@ def quantize_pe(pe):
     return torch.floor(torch.clamp(pe.to(torch.float32), 0.0, 65535.0)).to(I64)
 
 
-def mean_pe_exact(pe_q):
-    """max(1, floor(sum(pe_q) / F)) along the last axis, exact in int64."""
-    nf = pe_q.shape[-1]
+def mean_pe_exact(pe_q, nf=None):
+    """max(1, floor(sum(pe_q) / nf)) along the last axis, exact in int64;
+    nf is the axis length, or a [...] tensor of each row's frame count."""
+    nf = pe_q.shape[-1] if nf is None else nf
     return torch.clamp(torch.div(pe_q.sum(-1), nf, rounding_mode="floor"),
                        min=1)
 
@@ -78,11 +79,25 @@ def budgets_scan(desired, mean_bits: int, cap: int):
     return torch.minimum(desired, mean_bits + r)
 
 
-def allocate(pe, cfg):
-    """[..., F] float32 PE (one reservoir chain per row) -> int64 budgets."""
+def allocate(pe, cfg, nf_row=None):
+    """[..., F] float32 PE (one reservoir chain per row) -> int64 budgets.
+
+    nf_row ([...] ints) is each row's true frame count when rows are
+    tail-padded to a shared F (the fused corpus batch): pad frames get
+    pe_q = 0 and the mean PE divides by nf_row, so every real frame's
+    budget equals that of the row encoded alone (pad frames come after the
+    real ones and cannot reach them through the scan). Mirrors
+    mrcaudiocodec_tpu/parallel/sharded.py's per-row mean."""
     mean_bits = int(cfg.mean_frame_bits)
     if not cfg.reservoir:
         return torch.full(pe.shape, mean_bits, dtype=I64, device=pe.device)
     pe_q = quantize_pe(pe)
-    desired = desired_bits(pe_q, mean_bits, mean_pe_exact(pe_q))
+    if nf_row is None:
+        mean_pe = mean_pe_exact(pe_q)
+    else:
+        nf_row = torch.as_tensor(nf_row, dtype=I64, device=pe.device)
+        frame = torch.arange(pe.shape[-1], device=pe.device)
+        pe_q = torch.where(frame < nf_row[..., None], pe_q, 0)
+        mean_pe = mean_pe_exact(pe_q, nf_row)
+    desired = desired_bits(pe_q, mean_bits, mean_pe)
     return budgets_scan(desired, mean_bits, cfg.reservoir_cap)

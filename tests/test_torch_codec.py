@@ -109,7 +109,7 @@ def test_chunk_size_does_not_change_bytes(monkeypatch):
     x = make_clip(44100, 0.8, 2, seed=5)
     a = codec.encode(x, cfg, device="cpu")
     ya, _ = codec.decode(a, device="cpu")
-    monkeypatch.setattr(encoder, "ENC_CHUNK", 7)
+    monkeypatch.setattr(encoder, "ENC_ROW_FRAMES", 14)     # 7 frames x 2
     monkeypatch.setattr(decoder, "DEC_CHUNK", 5)
     assert codec.encode(x, cfg, device="cpu") == a
     yb, _ = codec.decode(a, device="cpu")

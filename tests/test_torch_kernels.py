@@ -1,12 +1,14 @@
-"""The port's two CUDA kernels: their plain versions against the JAX
-package, and (on a card only) each kernel against its plain version.
+"""The port's main-path CUDA kernels: their plain versions against the
+JAX package, and (on a card only) each kernel against its plain version.
 
 K1 (ops/kernels/fft_stages.py) replaces the Pallas `_stages_kernel`; its
 plain version must equal `xmath.fft_dif(xp=np)` bitwise at all four FFT
 sizes. K2 (ops/kernels/quant_cost.py) replaces the Pallas
 `_quant_kernel`; its plain version, plus the fixed and sf bits, must
 equal the Pallas kernel run in interpret mode and the JAX XLA path
-(`rd._bits_for_gains`) exactly. Tests marked `cuda` need a card and
+(`rd._bits_for_gains`) exactly. K3 (ops/kernels/record_pack.py) has no
+Pallas counterpart; its plain version is held against the JAX
+`pack_records_device` in tests/test_torch_device_pack.py. Tests marked `cuda` need a card and
 skip here; the machine with the card has no JAX, so this module imports
 JAX only inside the tests that compare against it, and there the tests
 run as `MRC_TESTS_KEEP_TPU=1 python -m pytest tests/test_torch_kernels.py
@@ -21,7 +23,9 @@ from mrcaudiocodec_tpu import tables as JT
 from mrcaudiocodec_tpu import xmath as jxmath
 
 from mrcaudiocodec_tpu_torch.ops import entropy, rd
-from mrcaudiocodec_tpu_torch.ops.kernels import fft_stages, quant_cost
+from mrcaudiocodec_tpu_torch.ops import device_pack
+from mrcaudiocodec_tpu_torch.ops.kernels import (fft_stages, quant_cost,
+                                                 record_pack)
 
 torch.set_num_threads(1)
 
@@ -306,3 +310,98 @@ def test_quant_kernel_matches_plain_on_card(g, fs):
     assert quant_cost.launches == before + 1
     want = quant_cost.payload_bits_plain(*[a.cpu() for a in args], fs)
     assert torch.equal(got.cpu(), want)
+
+
+def _pack_card_vs_plain(d, fs, cap):
+    """K3 on the card == its plain version on the CPU, rec and nbytes."""
+    cpu = [torch.from_numpy(np.ascontiguousarray(v)) for v in d]
+    before = record_pack.launches
+    rec, nbytes = device_pack.pack_records(*[t.cuda() for t in cpu], fs, cap)
+    assert record_pack.launches == before + 1
+    want_rec, want_n = device_pack.pack_records_plain(*cpu, fs, cap)
+    assert torch.equal(rec.cpu(), want_rec)
+    assert torch.equal(nbytes.cpu(), want_n)
+    return want_n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nf", [1, 7, 300])
+@pytest.mark.parametrize("fs", [44100, 48000, 32000])
+def test_record_pack_kernel_matches_plain_on_card(fs, nf):
+    """Random decisions: every codebook, block type, escapes up to QMAX."""
+    _need_card()
+    d = record_pack.random_decisions(np.random.default_rng(fs + nf), nf, fs)
+    _pack_card_vs_plain(d, fs, 2048)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["zeros", "all_small", "all_mid",
+                                  "max_escapes", "cap_exact"])
+def test_record_pack_kernel_edge_cases_on_card(case):
+    _need_card()
+    fs = 44100
+    rng = np.random.default_rng(len(case))
+    q, amp, gain, bt, cb = record_pack.random_decisions(rng, 10, fs)
+    lay = JT.unified_layout(fs)
+    real = lay["width"][bt] > 0
+    if case == "zeros":
+        q[:] = 0
+        cb[:] = 0
+        amp[:] = 0
+    elif case in ("all_small", "all_mid"):
+        book, top = (1, 1) if case == "all_small" else (2, 4)
+        cb[:] = np.where(real, book, 0)
+        q[:] = rng.integers(-top, top + 1, q.shape)
+    elif case == "max_escapes":
+        cb[:] = np.where(real, 3, 0)
+        q[:] = rng.choice(np.array([-JC.QMAX, JC.QMAX, 16, -16, 32]), q.shape)
+        gain[:] = 255
+        amp[:] = JC.AMP_MAX
+    cap = 8192
+    if case == "cap_exact":
+        _, n = device_pack.pack_records_plain(
+            *[torch.from_numpy(v) for v in (q, amp, gain, bt, cb)], fs, cap)
+        cap = int(n.max())
+    _pack_card_vs_plain((q, amp, gain, bt, cb), fs, cap)
+
+
+@pytest.mark.cuda
+def test_record_pack_kernel_raises_on_small_cap_and_bad_input():
+    _need_card()
+    fs = 44100
+    d = [torch.from_numpy(v).cuda() for v in
+         record_pack.random_decisions(np.random.default_rng(5), 6, fs)]
+    _, n = device_pack.pack_records(*d, fs, 2048)
+    need = int(n.max())
+    with pytest.raises(ValueError, match="more than cap"):
+        device_pack.pack_records(*d, fs, need - 1)
+    q, amp, gain, bt, cb = d
+    buf = torch.zeros(6 * 1024 + 8, dtype=torch.int16, device="cuda")
+    shifted = buf[1:6 * 1024 + 1].view(6, 1024)        # 2-byte offset
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        record_pack.pack_records_kernel(shifted, amp, gain, bt, cb, fs, 2048)
+    with pytest.raises(ValueError, match="want contiguous"):
+        record_pack.pack_records_kernel(q.t().contiguous().t(), amp, gain,
+                                        bt, cb, fs, 2048)
+    with pytest.raises(ValueError, match="want contiguous"):
+        record_pack.pack_records_kernel(q, amp.cpu(), gain, bt, cb, fs, 2048)
+
+
+@pytest.mark.cuda
+def test_encode_launches_record_pack_on_card():
+    """A card encode packs its records with K3 and equals the CPU stream
+    and the host packer's."""
+    _need_card()
+    from mrcaudiocodec_tpu_torch.config import CodecConfig
+    from mrcaudiocodec_tpu_torch.models import codec, encoder, packing
+    rng = np.random.default_rng(9)
+    x = np.clip(0.3 * rng.standard_normal((30000, 2)), -1, 1).astype(
+        np.float32)
+    cfg = CodecConfig(fs=44100, channels=2, bitrate=128000)
+    before = record_pack.launches
+    bs = codec.encode(x, cfg, device="cuda")
+    assert record_pack.launches > before
+    assert bs == codec.encode(x, cfg, device="cpu")
+    dec, nf = encoder.encode_arrays(x, cfg, device="cuda")
+    assert bs == packing.pack_stream(dec, nf, x.shape[0], cfg)
