@@ -12,10 +12,13 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      and on the CPU); K2 quant_cost at G in {32, 8, 4, 1}, zero and random
      amplification, all block types, fs 44100/48000/32000; K3 record_pack
      on random decisions (every codebook and block type, escapes up to
-     QMAX, all three fs) and a too-small cap, which must raise; then all
-     three on the main path's own inputs, captured at their wrappers: one
-     30 s stereo encode (one chunk of 2586 frame rows), its decode, and one
-     64 x 10 s stereo corpus batch (chunks of 8192 frame rows)
+     QMAX, all three fs) in stream orders that are in turn, shuffled or
+     skip records, at 1, 31, 32, 33, a tile +- 1, 8192 and 65536 records,
+     20 repeated launches giving the same bytes, and a too-small cap,
+     which must raise; then all three on the main path's own inputs,
+     captured at their wrappers: one 30 s stereo encode (one chunk of 2586
+     frame rows), its decode, and one 64 x 10 s stereo corpus batch
+     (chunks of 8192 frame rows)
   4. on those captured inputs, each kernel's time (CUDA events, and the
      profiler's device time per launch) beside its plain version's, one
      PyTorch library call where one exists (torch.fft.fft for K1) and the
@@ -30,8 +33,10 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      encoded and decoded on the card, kernel launch counts of that run,
      then one warm-up and 5 timed runs of each
   8. where the time goes: host-clock ms per encode/decode stage (the pack
-     stage as device pack, download and assemble, beside the host-pack path
-     it replaces, with the bytes each downloads), and the card's busy share
+     stage as the stream order built and uploaded, device pack, download
+     of the compact stream body and assemble, beside the host-pack path,
+     with the bytes each downloads),
+     and the card's busy share
      with the top kernels (torch.profiler), with K1's, K2's and K3's
      launches and device ms in one encode and one decode
   9. the probe path (P1-P5, mrcaudiocodec_tpu_torch/probes/): builds the
@@ -259,15 +264,15 @@ def kernel_pair(name):
     return {"fft_stages": (fft_stages.fft_kernel, fft_stages.fft_plain),
             "quant_cost": (quant_cost.payload_bits_kernel,
                            quant_cost.payload_bits_plain),
-            "record_pack": (record_pack.pack_records_kernel,
-                            device_pack.pack_records_plain)}[name]
+            "record_pack": (record_pack.pack_stream_kernel,
+                            device_pack.pack_stream_plain)}[name]
 
 
 def capture_inputs(run):
     """Run run() with K1's, K2's and K3's wrappers recording a copy of
     their arguments -> {key: args} of the first call of each key: K1
     ("fft_stages", shape), K2 ("quant_cost", (rows, G)), K3
-    ("record_pack", (records,)), in call order."""
+    ("record_pack", (records in the stream order,)), in call order."""
     import torch
     from mrcaudiocodec_tpu_torch.ops.kernels import (fft_stages, quant_cost,
                                                      record_pack)
@@ -276,8 +281,8 @@ def capture_inputs(run):
               lambda a: ("fft_stages", tuple(a[0].shape))),
              (quant_cost, "payload_bits_kernel",
               lambda a: ("quant_cost", tuple(a[2].shape))),
-             (record_pack, "pack_records_kernel",
-              lambda a: ("record_pack", (a[0].shape[0],))))
+             (record_pack, "pack_stream_kernel",
+              lambda a: ("record_pack", (a[5].shape[0],))))
     saved = []
     for mod, attr, key_of in hooks:
         orig = getattr(mod, attr)
@@ -380,7 +385,9 @@ def phase_build():
     log("[build] fft_stages: static shared memory per size (ptxas above); "
         "quant_cost: dynamic shared memory 8448 B per frame of the block "
         "(1 frame at G >= 4, 4 / G below), set at launch; record_pack: "
-        "dynamic shared memory of cap bytes (rounded up to 4) a record")
+        "dynamic shared memory per warp of 128 B plus two staging buffers "
+        "of cap rounded up to 4 B, warps per block from the cap "
+        "(record_pack.warps_per_block)")
 
 
 def phase_kernels(dev):
@@ -447,10 +454,7 @@ def phase_kernels(dev):
     for where, caps in inputs.items():
         for key, args in caps.items():
             kernel, plain = kernel_pair(key[0])
-            got, want = kernel(*args), plain(*args)
-            torch.cuda.synchronize()
-            got = got if isinstance(got, tuple) else (got,)
-            want = want if isinstance(want, tuple) else (want,)
+            got, want = outputs(key[0], kernel(*args), plain(*args))
             ok = all(bits_equal(g, w) for g, w in zip(got, want))
             err[key[0]] = max([err[key[0]]] + [max_abs_err(g, w) for g, w
                                                 in zip(got, want)])
@@ -461,15 +465,52 @@ def phase_kernels(dev):
     return err, inputs
 
 
+def outputs(name, got, want):
+    """A kernel's and its plain version's outputs as tuples to compare,
+    after a synchronize: K3's body cut to the `total` bytes the plain
+    version's status gives (the kernel writes nothing past them)."""
+    import torch
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    if name == "record_pack":
+        total = int(want[2][0])
+        got = (got[0][:total],) + got[1:]
+        want = (want[0][:total],) + want[1:]
+    return got, want
+
+
+def record_orders(n, rng):
+    """Stream orders over n records: in turn, shuffled, and one that skips
+    about a third of them (the corpus batch's pad frames), shuffled."""
+    keep = np.flatnonzero(rng.random(n) < 0.66)
+    keep = keep if len(keep) else np.arange(1)
+    return {"in turn": np.arange(n), "shuffled": rng.permutation(n),
+            "skipping": rng.permutation(keep)}
+
+
+def tiled_decisions(rng, n, fs):
+    """random_decisions for n records, tiled from at most 4096."""
+    from mrcaudiocodec_tpu_torch.ops.kernels import record_pack
+    base = record_pack.random_decisions(rng, min(n, 4096), fs)
+    reps = -(-n // len(base[0]))
+    return [np.ascontiguousarray(np.concatenate([v] * reps)[:n])
+            for v in base]
+
+
 def phase_kernels_record_pack(dev, rng):
-    """K3 against its plain version (on the card and on the CPU), bitwise:
-    random decisions at each fs, and a cap one byte too small, which must
-    raise. -> max |err|."""
+    """K3 against its plain version (on the card, and on the CPU up to 600
+    records), bitwise: random decisions at each fs in three stream orders
+    at record counts around a warp and a tile and up to 65536 (long
+    look-back chains), 20 repeated launches on one input, and a cap one
+    byte too small, which must raise. -> max |err|."""
     import torch
     from mrcaudiocodec_tpu_torch import config as C
     from mrcaudiocodec_tpu_torch.ops import device_pack
     from mrcaudiocodec_tpu_torch.ops.kernels import record_pack
-    cases = []
+    cap = 4096
+    tile = record_pack.warps_per_block(cap)
+    err, cases = 0.0, 0
     for fs in (44100, 48000, 32000):
         d = record_pack.random_decisions(rng, 600, fs)
         q, cb, bt = np.abs(d[0].astype(np.int64)), d[4], d[3]
@@ -477,26 +518,60 @@ def phase_kernels_record_pack(dev, rng):
               and set(np.unique(cb).tolist()) == set(range(C.N_CODEBOOKS))
               and q.max() == C.QMAX and (q == C.ESC_MAG).any(),
               f"random decisions at fs={fs} miss a slot kind")
-        cases.append((f"random decisions fs={fs} (all block types and "
-                      f"codebooks, escapes to {C.QMAX})",
-                      [torch.from_numpy(v).to(dev) for v in d], fs, 4096))
-    err = 0.0
-    for name, d, fs, cap in cases:
-        kr, kn = record_pack.pack_records_kernel(*d, fs, cap)
-        pr, pn = device_pack.pack_records_plain(*d, fs, cap)
-        cr, cn = device_pack.pack_records_plain(*[t.cpu() for t in d], fs,
-                                                cap)
-        torch.cuda.synchronize()
-        ok = (bits_equal(kr, pr) and bits_equal(kn, pn)
-              and bits_equal(kr, cr) and bits_equal(kn, cn))
-        err = max(err, max_abs_err(kr, cr), max_abs_err(kn, cn))
-        log(f"[kernels] record_pack {name}: {d[0].shape[0]} records, cap "
-            f"{cap}, {int(kn.sum())} bytes: kernel == plain (card, CPU) "
-            f"bitwise: {ok}")
-        check(ok, f"record_pack {name} differs from its plain version")
-    need = int(kn.max())                    # the last case's longest record
+        for n in (1, 31, 32, 33, tile - 1, tile, tile + 1, 600, 8192, 65536):
+            if n == 600:
+                dn = d
+            elif n <= 600:
+                dn = [v[:n] for v in d]
+            else:
+                dn = tiled_decisions(rng, n, fs)
+            dc = [torch.from_numpy(v).to(dev) for v in dn]
+            for kind, order in record_orders(n, rng).items():
+                oc = torch.from_numpy(order.astype(np.int32))
+                args = (*dc, oc.to(dev), fs, cap)
+                got, want = outputs(
+                    "record_pack", record_pack.pack_stream_kernel(*args),
+                    device_pack.pack_stream_plain(*args))
+                ok = all(bits_equal(g, w) for g, w in zip(got, want))
+                if n <= 600:
+                    _, cpu = outputs("record_pack", got,
+                                     device_pack.pack_stream_plain(
+                                         *[t.cpu() for t in dc], oc, fs, cap))
+                    ok = ok and all(bits_equal(g, w)
+                                    for g, w in zip(got, cpu))
+                err = max([err] + [max_abs_err(g, w)
+                                   for g, w in zip(got, want)])
+                cases += 1
+                if n in (600, 65536) or not ok:
+                    log(f"[kernels] record_pack fs={fs} {n} records, order "
+                        f"{kind} ({len(order)} packed), cap {cap}, "
+                        f"{int(want[2][0])} bytes: kernel == plain (card"
+                        f"{', CPU' if n <= 600 else ''}) bitwise: {ok}")
+                check(ok, f"record_pack fs={fs} n={n} order {kind} differs "
+                      f"from its plain version")
+    log(f"[kernels] record_pack: {cases} cases (3 fs x record counts 1, 31, "
+        f"32, 33, {tile - 1}, {tile}, {tile + 1} (a tile of {tile} at cap "
+        f"{cap}), 600, 8192, 65536 x orders in turn, shuffled, skipping) all "
+        f"bitwise equal")
+    # 20 launches on one input: the same bytes every time
+    dc = [torch.from_numpy(v).to(dev) for v in tiled_decisions(rng, 8192,
+                                                               44100)]
+    oc = torch.from_numpy(record_orders(8192, rng)["skipping"].astype(
+        np.int32)).to(dev)
+    first = record_pack.pack_stream_kernel(*dc, oc, 44100, cap)
+    total = int(first[2][0])
+    same = 0
+    for _ in range(20):
+        b, nb_, st = record_pack.pack_stream_kernel(*dc, oc, 44100, cap)
+        same += bool(torch.equal(b[:total], first[0][:total])
+                     and torch.equal(nb_, first[1])
+                     and torch.equal(st, first[2]))
+    log(f"[kernels] record_pack: 20 repeated launches on 8192 records "
+        f"({len(oc)} packed, {total} bytes) identical to the first: {same}/20")
+    check(same == 20, "record_pack gave different bytes on a repeat")
+    need = int(first[2][1])                  # its longest record
     try:
-        record_pack.pack_records_kernel(*d, fs, need - 1)
+        record_pack.pack_stream_kernel(*dc, oc, 44100, need - 1)
         raised = False
     except ValueError as e:
         raised = "more than cap" in str(e)
@@ -663,14 +738,20 @@ def phase_breakdown(dev):
     lap("enc.rd+codebook", t)
     cap = device_pack.pack_cap_bytes(cfg)
     t = time.perf_counter()
-    packed = [encoder.pack_chunk(d, cfg, cap) for d in decisions]
+    orders = [encoder.stream_order(None, cfg.channels, f0, s, P.shape[0])
+              for f0, s in spans]
+    order_dev = [torch.from_numpy(o).to(dev) for o, _ in orders]
+    lap("enc.order", t)
+    t = time.perf_counter()
+    packed = [encoder.pack_chunk(d, o, cfg, cap)
+              for d, o in zip(decisions, order_dev)]
     lap("enc.device_pack", t)
     t = time.perf_counter()
-    rec, nbytes = encoder.download_records(packed)
+    down = [encoder.download_body(p) for p in packed]
     lap("enc.download", t)
     t = time.perf_counter()
-    stream = encoder.assemble_stream(rec, nbytes, range(cfg.channels), nf,
-                                     xi.shape[0], cfg)
+    stream = encoder.header(cfg, nf, xi.shape[0]) + b"".join(
+        encoder.clip_slices(*dn, c)[0] for dn, (_, c) in zip(down, orders))
     lap("enc.assemble", t)
     check(stream == bs, "the staged encode differs from codec.encode")
     # the host-pack path the last three stages replace, same decisions
@@ -691,13 +772,13 @@ def phase_breakdown(dev):
         + json.dumps({k: round(v, 3) for k, v in laps.items()}))
     sizes = {"decisions": sum(t.numel() * t.element_size()
                               for d in decisions for t in d),
-             "records": sum(r.numel() * r.element_size()
-                            + n.numel() * n.element_size()
-                            for r, n in packed)}
+             "body": sum(b.nbytes + n.size * 4 + 8 for b, n in down)}
     log(f"[breakdown] bytes downloaded per encode: decisions (q int16, amp "
-        f"int8, gain int16, bt int8, cb int8) {sizes['decisions']}; records "
-        f"(rec [R, nf, {cap}] uint8 + nbytes int32) {sizes['records']}; the "
-        f"stream {len(bs)}")
+        f"int8, gain int16, bt int8, cb int8) {sizes['decisions']}; stream "
+        f"body + nbytes int32 + status {sizes['body']} "
+        f"({sum(b.nbytes for b, _ in down)} + "
+        f"{sum(n.size for _, n in down)} x 4 + {8 * len(down)}); the stream "
+        f"{len(bs)}")
 
     # busy share = device time (the profiler's kernel and copy times) over
     # the best UNprofiled wall time: the profiled run's own wall time
@@ -757,12 +838,15 @@ def kernel_bound(key, args):
         rows, g = args[2].shape
         return (rows * C.LONG_COEFFS * 8 + rows * (2 * g + 1) * 4,
                 rows * g * C.LONG_COEFFS * 54, F32_OPS_PER_S)
-    # K3: q, amp, cb, gain, bt in; the records and nbytes out. Integer work
-    # these records need: a shift and an OR per bit-carrying slot
-    fs, cap = args[5], args[6]
-    nf, nb = args[0].shape[0], T.unified_layout(fs)["nb"]
-    _, lens, _ = device_pack.slots(*args[:5], fs)
-    return (nf * (2 * C.LONG_COEFFS + 2 * nb + 2 + 1) + nf * (cap + 4),
+    # K3: the packed records' q, amp, cb, gain, bt and their order entries
+    # in; the compact body and nbytes out. Integer work these records need:
+    # a shift and an OR per bit-carrying slot
+    order, fs = args[5], args[6]
+    n, nb = order.shape[0], T.unified_layout(fs)["nb"]
+    sel = [t.index_select(0, order.long()) for t in args[:5]]
+    _, lens, content = device_pack.slots(*sel, fs)
+    body = int(((C.FRAME_LEN_BITS + content + 7) >> 3).sum())
+    return (n * (2 * C.LONG_COEFFS + 2 * nb + 2 + 1 + 4) + body + n * 4,
             2 * int((lens > 0).sum()), INT32_OPS_PER_S)
 
 
@@ -801,7 +885,7 @@ def phase_times(dev, inputs):
     K3 on its 2586 records. Every other captured input (K2 at G=8/4/1, the
     decode's FFTs, the 64-clip batch's chunk of 8192 frame rows) is timed
     too and kept under by_shape. Event ms hold the host's launch interval
-    where a kernel is short (and K3's read of max(nbytes)); device ms (the
+    where a kernel is short (and K3's read of its status); device ms (the
     profiler's kernel time per launch) do not."""
     out = {}
     for name in ("fft_stages", "quant_cost", "record_pack"):
@@ -851,6 +935,7 @@ MIX_CLASSES = {
             "IADD", "SGXT"),
     "shared": ("LDS", "STS"),
     "global": ("LDG", "STG"),
+    "atomic": ("ATOMS", "ATOMG", "ATOM", "RED"),
     "warp": ("SHFL", "REDUX", "MATCH", "VOTE"),
     "control": ("BRA", "BSSY", "BSYNC", "BAR", "EXIT", "CALL", "RET"),
 }
@@ -860,7 +945,7 @@ def log_instruction_mix():
     """Each K1/K2/K3 kernel's SASS instructions (cuobjdump -sass), by
     class: the static counts the device times are read against (K1's
     kernels are straight-line code, K2's gain loop is unrolled over a
-    lane's 8 tuples, 32 bins, K3's over a thread's 4 pairs)."""
+    lane's 8 tuples, 32 bins, K3's over a lane's 16 pairs, twice)."""
     from mrcaudiocodec_tpu_torch.ops.kernels import build
     from mrcaudiocodec_tpu_torch.probes import fma_probe
     for lib in build.MAIN:

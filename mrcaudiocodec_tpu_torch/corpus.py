@@ -64,7 +64,8 @@ def _encode_batch_fused(arrs: list[np.ndarray], cfg: CodecConfig,
     device. Each row is tail-padded with silence to a shared frame count
     (a FRAME_BUCKET multiple); each row's true frame count goes to the
     reservoir, the only whole-clip quantity, so pad frames change no
-    byte. int16 sources stay int16 through the upload."""
+    byte, and stream order leaves them out of every body. int16 sources
+    stay int16 through the upload."""
     dev = encoder.device_for(device)
     nch = arrs[0].shape[1]
     n_list = [a.shape[0] for a in arrs]
@@ -74,10 +75,8 @@ def _encode_batch_fused(arrs: list[np.ndarray], cfg: CodecConfig,
     nf_row = np.repeat(nf_list, nch)
     for i, a in enumerate(arrs):
         P[i * nch:(i + 1) * nch, 2 * C.HOP:2 * C.HOP + n_list[i]] = a.T
-    rec, nbytes = encoder.encode_rows(P, nf_row, cfg, dev)
-    return [encoder.assemble_stream(rec, nbytes,
-                                    range(i * nch, (i + 1) * nch),
-                                    nf_list[i], n_list[i], cfg)
+    bodies = encoder.encode_rows(P, nf_row, cfg, dev)
+    return [encoder.header(cfg, nf_list[i], n_list[i]) + bodies[i]
             for i in range(len(arrs))]
 
 

@@ -8,10 +8,12 @@
   device: the integer bit-reservoir budget scan over each whole row
   device: per chunk: RD loop (the quantization-cost kernel K2), the
           per-band codebook choice, then the record bytes (the record-pack
-          kernel K3, ops/device_pack.py)
-  host:   one download of the records [R, nf, cap] and their lengths, the
-          (frame, channel) interleave and the concatenation of each
-          record's bytes behind the header
+          kernel K3, ops/device_pack.py), laid back to back on the card
+          in stream order: (frame, channel) within each clip, the corpus
+          batch's pad frames left out
+  host:   per chunk one download of that stream body and the records'
+          lengths; each clip's stream is its header and the join over
+          chunks of its slice of the body
 
 Entry point: `encode(x, cfg, device="cuda")`. It runs on the card unless
 the caller passes device="cpu"; without CUDA it raises, never falling
@@ -31,7 +33,6 @@ import numpy as np
 import torch
 
 from .. import config as C
-from .. import native
 from ..bitstream import write_header
 from ..config import CodecConfig
 from ..ops import device_pack, dsp, entropy, psycho, rd, reservoir
@@ -144,51 +145,76 @@ def encode_arrays(x: np.ndarray, cfg: CodecConfig, device="cuda"):
     return download(decisions), nf
 
 
-def pack_chunk(decisions, cfg: CodecConfig, cap: int):
-    """One chunk's decisions [R, s, ...] -> (rec [R, s, cap] uint8, nbytes
-    [R, s] int32) on the device (K3 on the card)."""
+def stream_order(nf_row, nch: int, f0: int, s: int, rows: int):
+    """One chunk's records in stream order -> (order int32 [N], records of
+    each clip in the chunk [clips]). Clip j holds rows j*nch .. j*nch +
+    nch - 1 and its first nf_row[j*nch] frames (nf_row None: every frame);
+    its records run frame by frame over [f0, min(f0 + s, nf)), channels
+    within a frame, record (j*nch + c)*s + (f - f0) of the chunk's [R*s]
+    decisions. Pad frames are left out."""
+    clips = rows // nch
+    nf = (np.full(clips, f0 + s) if nf_row is None
+          else np.asarray(nf_row)[::nch])
+    frame = np.arange(s)
+    idx = ((np.arange(clips)[:, None, None] * nch
+            + np.arange(nch)[None, None, :]) * s
+           + frame[None, :, None])                       # [clip, frame, c]
+    real = f0 + frame[None, :] < nf[:, None]              # [clip, frame]
+    order = idx[np.broadcast_to(real[:, :, None], idx.shape)]
+    return order.astype(np.int32), real.sum(1) * nch
+
+
+def pack_chunk(decisions, order, cfg: CodecConfig, cap: int):
+    """One chunk's decisions [R, s, ...] and its stream order [N] (on the
+    device) -> (body, nbytes, status) of device_pack.pack_stream (K3 on the
+    card)."""
     q, amp, gain, bt, cb = decisions
     r, s = bt.shape
-    rec, nbytes = device_pack.pack_records(
+    return device_pack.pack_stream(
         q.reshape(r * s, -1), amp.reshape(r * s, -1), gain.reshape(-1),
-        bt.reshape(-1), cb.reshape(r * s, -1), cfg.fs, cap)
-    return rec.reshape(r, s, cap), nbytes.reshape(r, s)
+        bt.reshape(-1), cb.reshape(r * s, -1), order, cfg.fs, cap)
 
 
-def download_records(packed):
-    """Per-chunk (rec, nbytes) -> host arrays rec [R, nf, cap] uint8 and
-    nbytes [R, nf] int64, one copy of each."""
-    rec = torch.cat([p[0] for p in packed], dim=1).cpu().numpy()
-    nbytes = torch.cat([p[1] for p in packed], dim=1).cpu().numpy()
-    return rec, nbytes.astype(np.int64)
+def download_body(packed):
+    """A packed chunk -> host arrays: its stream body uint8 [total] and the
+    records' nbytes int64 [N], in stream order."""
+    body, nbytes, status = packed
+    return (body[:int(status[0])].cpu().numpy(),
+            nbytes.cpu().numpy().astype(np.int64))
+
+
+def clip_slices(body, nbytes, counts) -> list[bytes]:
+    """A chunk's host body -> each clip's slice of it, from the records'
+    lengths and the records of each clip (stream_order)."""
+    ends = np.concatenate([[0], np.cumsum(nbytes)])
+    at = ends[np.concatenate([[0], np.cumsum(counts)])]
+    return [body[a:b].tobytes() for a, b in zip(at[:-1], at[1:])]
 
 
 def encode_rows(P: np.ndarray, nf_row, cfg: CodecConfig, dev):
     """Padded rows [R, plen] (`_padded_rows` layout; int16 or float32) and
-    each row's true frame count (None: all of them) -> host arrays rec
-    [R, nf, cap] uint8 and nbytes [R, nf] int64: the records of every row,
-    built on `dev`."""
+    each row's true frame count (None: all of them) -> each clip's stream
+    body (bytes, the header not included), built on `dev`. Clip j holds
+    rows j*nch .. j*nch + nch - 1, nch = cfg.channels."""
+    nch = cfg.channels
     cap = device_pack.pack_cap_bytes(cfg)
     spans, chunks, budgets = _analyze_rows(P, nf_row, cfg, dev)
-    packed = [pack_chunk(decide_chunk(ch, budgets[:, f0:f0 + s], cfg), cfg,
-                         cap)
-              for ch, (f0, s) in zip(chunks, spans)]
-    return download_records(packed)
+    pieces = [[] for _ in range(P.shape[0] // nch)]
+    for ch, (f0, s) in zip(chunks, spans):
+        order, counts = stream_order(nf_row, nch, f0, s, P.shape[0])
+        packed = pack_chunk(decide_chunk(ch, budgets[:, f0:f0 + s], cfg),
+                            torch.from_numpy(order).to(dev), cfg, cap)
+        for j, piece in enumerate(clip_slices(*download_body(packed),
+                                              counts)):
+            pieces[j].append(piece)
+    return [b"".join(p) for p in pieces]
 
 
-def assemble_stream(rec, nbytes, rows, nf: int, n_samples: int,
-                    cfg: CodecConfig) -> bytes:
-    """The MRC1 stream of one clip from host records: its rows (one per
-    channel), frames [0, nf), in record order (frame, channel), each
-    record's nbytes run concatenated behind the header."""
-    _, f_all, cap = rec.shape
-    at = (np.asarray(rows)[None, :] * f_all
-          + np.arange(nf)[:, None]).reshape(-1)       # record -> [R, F] index
-    runs = nbytes.reshape(-1)[at]
-    idx = np.repeat(at * cap, runs) + native._ranges(runs)
+def header(cfg: CodecConfig, nf: int, n_samples: int) -> bytes:
+    """The MRC1 stream header of a clip of nf frames, n_samples samples."""
     w = BitWriter()
     write_header(w, cfg, nf, n_samples)
-    return w.getvalue() + rec.reshape(-1)[idx].tobytes()
+    return w.getvalue()
 
 
 def encode(x: np.ndarray, cfg: CodecConfig, device="cuda") -> bytes:
@@ -204,7 +230,6 @@ def encode(x: np.ndarray, cfg: CodecConfig, device="cuda") -> bytes:
             f"config expects {cfg.channels} channels, got {x.shape[1]}")
     dev = device_for(device)
     nf = C.frames_for_samples(x.shape[0])
-    rec, nbytes = encode_rows(_padded_rows(x, nf), None, cfg, dev)
-    return assemble_stream(rec, nbytes, range(cfg.channels), nf, x.shape[0],
-                           cfg)
+    body, = encode_rows(_padded_rows(x, nf), None, cfg, dev)
+    return header(cfg, nf, x.shape[0]) + body
 

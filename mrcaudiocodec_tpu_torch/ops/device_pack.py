@@ -1,23 +1,29 @@
-"""Record packing on the device: decision arrays -> MRC1 record bytes.
+"""Record packing on the device: decision arrays -> a chunk's MRC1 stream
+body.
 
 Port of mrcaudiocodec_tpu/ops/device_pack.py. The encoder builds every
-record's bytes where its decisions are; the host then only concatenates
-each record's `nbytes` run behind the header, so what crosses back is
-about the stream's size rather than the decision arrays (q alone is 2 KB
-a record).
+record's bytes where its decisions are, and lays them back to back in
+stream order there, so what crosses back is the stream's body and each
+record's length, not the decision arrays (q alone is 2 KB a record) nor
+cap-padded records; the host only prepends the header and joins one slice
+per chunk (the JAX package's `encode_device_packed` does that
+concatenation on the host).
 
-`pack_records(q, amp, gain, bt, cb, fs, cap)` launches the CUDA kernel K3
-(ops/kernels/record_pack.py) for CUDA tensors and takes the plain version
-`pack_records_plain` below for CPU tensors. Both raise for a record longer
-than `cap`, so a truncated record never reaches a stream (the JAX
-`_assemble_bytes` drops such bytes silently).
+`pack_stream(q, amp, gain, bt, cb, order, fs, cap)` launches the CUDA
+kernel K3 (ops/kernels/record_pack.py) for CUDA tensors and takes the
+plain version `pack_stream_plain` below for CPU tensors. Both raise for a
+record longer than `cap`, so a truncated record never reaches a stream
+(the JAX `_assemble_bytes` drops such bytes silently).
 
-The plain version is the slot grid of the JAX `_slots`, built with integer
-gathers (the codebook of each pair comes from `bin_band`, not from the
-JAX bf16 mask einsum), then an exclusive `cumsum` of the slot lengths and
-each slot's <= 4 byte contributions added with `scatter_add_` into
-[F, cap]: slots never share a bit, so the sum is the OR. Slot grid per
-record (models/packing.py of the JAX package):
+`pack_records_plain` is the per-record plain packer: the slot grid of the
+JAX `_slots`, built with integer gathers (the codebook of each pair comes
+from `bin_band`, not from the JAX bf16 mask einsum), then an exclusive
+`cumsum` of the slot lengths and each slot's <= 4 byte contributions added
+with `scatter_add_` into [F, cap]: slots never share a bit, so the sum is
+the OR. `pack_stream_plain` packs the records `order` names with it and
+compacts them with an integer exclusive `cumsum` of their lengths and an
+index gather. Slot grid per record (models/packing.py of the JAX
+package):
   [0]              20-bit length prefix (the content length)
   [1, 2]           block type (3), gain (8)
   [3 .. 3+NB)      codebook ids (2 bits, real bands)
@@ -164,8 +170,9 @@ def assemble_bytes(codes, lens, cap: int):
 
 
 def pack_records_plain(q, amp, gain, bt, cb, fs: int, cap: int):
-    """Plain PyTorch version of K3: -> (rec [F, cap] uint8, nbytes [F]
-    int32); raises for a record longer than cap."""
+    """The per-record plain packer (pack_stream_plain's first step): ->
+    (rec [F, cap] uint8, nbytes [F] int32); raises for a record longer
+    than cap."""
     nb = int(T.unified_layout(fs)["nb"])
     record_pack.check_decisions("pack_records_plain", q, amp, gain, bt, cb,
                                 nb, False)
@@ -178,11 +185,38 @@ def pack_records_plain(q, amp, gain, bt, cb, fs: int, cap: int):
     return assemble_bytes(codes, lens, cap), nbytes
 
 
-def pack_records(q, amp, gain, bt, cb, fs: int, cap: int):
-    """Decisions [F, ...] -> (rec [F, cap] uint8, nbytes [F] int32): K3 on
-    the card, the plain version for CPU tensors, an error otherwise."""
+def pack_stream_plain(q, amp, gain, bt, cb, order, fs: int, cap: int):
+    """Plain PyTorch version of K3: the records `order` names, packed and
+    laid back to back -> (body [N * cap] uint8, its first `total` bytes
+    the records in order, zeros after; nbytes [N] int32 in stream order;
+    status [2] int32 on the host, (total, max nbytes)). Raises for a
+    record longer than cap."""
+    record_pack.check_order("pack_stream_plain", order, q)
+    n = order.shape[0]
+    if n == 0:
+        return (torch.zeros((0,), dtype=torch.uint8, device=q.device),
+                torch.zeros((0,), dtype=torch.int32, device=q.device),
+                torch.zeros(2, dtype=torch.int32))
+    sel = [t.index_select(0, order.to(I64)) for t in (q, amp, gain, bt, cb)]
+    rec, nbytes = pack_records_plain(*sel, fs, cap)
+    runs = nbytes.to(I64)
+    total = int(runs.sum())
+    start = torch.cumsum(runs, 0) - runs            # exclusive, exact
+    rid = torch.repeat_interleave(torch.arange(n, device=q.device), runs)
+    at = torch.arange(total, device=q.device) - start[rid]
+    body = torch.zeros((n * cap,), dtype=torch.uint8, device=q.device)
+    body[:total] = rec[rid, at]
+    status = torch.tensor([total, int(nbytes.max())], dtype=torch.int32)
+    return body, nbytes, status
+
+
+def pack_stream(q, amp, gain, bt, cb, order, fs: int, cap: int):
+    """Decisions [F, ...] and a stream order [N] -> (body, nbytes, status)
+    as `pack_stream_plain` gives them: K3 on the card, the plain version
+    for CPU tensors, an error otherwise."""
     if q.is_cuda:
-        return record_pack.pack_records_kernel(q, amp, gain, bt, cb, fs, cap)
+        return record_pack.pack_stream_kernel(q, amp, gain, bt, cb, order,
+                                              fs, cap)
     if q.device.type == "cpu":
-        return pack_records_plain(q, amp, gain, bt, cb, fs, cap)
+        return pack_stream_plain(q, amp, gain, bt, cb, order, fs, cap)
     raise ValueError(f"no record packing for device {q.device}")

@@ -1,20 +1,25 @@
-"""K3: MRC1 record bytes built on the card by a hand-written CUDA kernel.
+"""K3: a chunk's MRC1 stream body built on the card by a hand-written CUDA
+kernel, records compacted in stream order.
 
 Replaces the record packing that the JAX package leaves to XLA
-(mrcaudiocodec_tpu/ops/device_pack.py `pack_records_device`); it has no
-Pallas counterpart. Source: csrc/record_pack.cu (design and bound noted
-there). Its plain version is `ops/device_pack.pack_records_plain`, and
-`device_pack.pack_records` launches this kernel for CUDA tensors and takes
-the plain version for CPU tensors.
+(mrcaudiocodec_tpu/ops/device_pack.py `pack_records_device`) and the host
+concatenation of the records; it has no Pallas counterpart. Source:
+csrc/record_pack.cu (design and bound noted there). Its plain version is
+`ops/device_pack.pack_stream_plain`, and `device_pack.pack_stream`
+launches this kernel for CUDA tensors and takes the plain version for CPU
+tensors.
 
-`pack_records_kernel(q, amp, gain, bt, cb, fs, cap)` -> (rec [F, cap]
-uint8, nbytes [F] int32) for the decisions in the encoder's dtypes (q
+`pack_stream_kernel(q, amp, gain, bt, cb, order, fs, cap)` -> (body
+[N * cap] uint8, its first `total` bytes the records order[0], order[1],
+... back to back; nbytes [N] int32 in that order; status [2] int32 on the
+host, (total, max nbytes)) for the decisions in the encoder's dtypes (q
 int16 [F, 1024], amp int8 [F, NB], gain int16 [F], bt int8 [F], cb int8
 [F, NB]) and in its ranges (|q| <= QMAX, amp 0..AMP_MAX, gain 0..255, bt
-0..4, cb 0..3): the kernel indexes its tables with them unchecked, as
-the encoder's `decide_chunk` makes them. A record longer than `cap`
-raises: the wrapper reads max(nbytes), one host sync per launch, the same
-check as the plain version's.
+0..4, cb 0..3), and `order` int32 [N] of record indices in [0, F): the
+kernel indexes its tables and the decisions with them unchecked, as the
+encoder's `decide_chunk` and `stream_order` make them. A record longer
+than `cap` raises: the wrapper reads the status, one small copy and the
+one host sync of a launch.
 """
 from __future__ import annotations
 
@@ -29,8 +34,33 @@ from ... import tables as T
 from .quant_cost import check_aligned
 
 launches = 0            # kernel launches since the last reset
-MAX_CAP_BYTES = 32 * 1024   # the kernel's shared buffer (kMaxCapBytes)
+MAX_CAP_BYTES = 32 * 1024   # kMaxCapBytes
+MAX_WARPS = 8               # kMaxWarps: records per tile
+NB_MAX = 128                # kNbMax
+SMEM_LIMIT = 48 * 1024      # a block's shared memory without the opt-in
+SMEM_OPT_IN = 227 * 1024    # with it (kMaxSmemOptIn, the H100's)
+# the kernel's static shared memory: code table, s_tile, s_off, s_nb[8],
+# s_excl[2][8] (int32), pair -> band map and real-band flags (bytes),
+# rounded up to 16 bytes (5600 B)
+STATIC_SMEM = -(-(4 * (81 + 81 + 289 + 121 + 2 + 3 * MAX_WARPS)
+                  + C.N_BLOCK_TYPES * (C.LONG_COEFFS // 2 + NB_MAX))
+                // 16) * 16
 BOOKS = ("small", "mid", "esc", "sf")       # order in the merged table
+
+
+def dyn_smem(cap: int, warps: int) -> int:
+    """Dynamic shared memory of a block (`dyn_smem` in the .cu): per warp
+    its record's codebook ids and two buffers of staging words."""
+    return warps * (NB_MAX + 2 * 4 * ((cap + 3) // 4))
+
+
+def warps_per_block(cap: int) -> int:
+    """Records a tile (warps a block): as many as fit the default 48 KB of
+    shared memory beside the tables, at most MAX_WARPS, and at least one
+    (above a cap of about 21 KB one warp needs more than 48 KB, and the
+    kernel's C entry opts in to it)."""
+    per_warp = dyn_smem(cap, 1)
+    return max(1, min(MAX_WARPS, (SMEM_LIMIT - STATIC_SMEM) // per_warp))
 
 
 @functools.lru_cache(maxsize=1)
@@ -51,25 +81,36 @@ def code_table() -> np.ndarray:
 
 @functools.lru_cache(maxsize=None)
 def pair_band(fs: int) -> np.ndarray:
-    """[5, 512] int32 band of each pair of bins, per block type."""
-    return np.ascontiguousarray(T.unified_layout(fs)["bin_band"][:, ::2],
-                                np.int32)
+    """[5, 512] uint8 band of each pair of bins, per block type."""
+    bands = T.unified_layout(fs)["bin_band"][:, ::2]
+    if bands.max() >= NB_MAX:
+        raise ValueError(f"fs={fs}: more than {NB_MAX} bands")
+    return np.ascontiguousarray(bands, np.uint8)
+
+
+@functools.lru_cache(maxsize=None)
+def real_bands(fs: int) -> np.ndarray:
+    """[5, 128] uint8: 1 where the band is real (width > 0), per block
+    type; 0 past nb."""
+    width = T.unified_layout(fs)["width"]
+    out = np.zeros((C.N_BLOCK_TYPES, NB_MAX), np.uint8)
+    out[:, :width.shape[1]] = width > 0
+    return out
 
 
 @functools.lru_cache(maxsize=None)
 def _dev_tables(fs: int, device: str):
-    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(
-        device)
-    return (t(code_table()), t(pair_band(fs)),
-            t(T.unified_layout(fs)["width"]))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return t(code_table()), t(pair_band(fs)), t(real_bands(fs))
 
 
 @functools.lru_cache(maxsize=1)
 def _fn():
     from .build import lib
     fn = lib("record_pack").mrc_record_pack
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_longlong, ctypes.c_int,
-                                            ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_longlong, ctypes.c_int,
+                                            ctypes.c_int, ctypes.c_int,
+                                            ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -90,33 +131,54 @@ def check_decisions(name, q, amp, gain, bt, cb, nb: int, cuda: bool):
                 f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def pack_records_kernel(q, amp, gain, bt, cb, fs: int, cap: int):
-    """Launch K3 on CUDA tensors -> (rec [F, cap] uint8, nbytes [F] int32)."""
+def check_order(name, order, q):
+    """Raise unless `order` is a contiguous 1-D int32 tensor on q's device."""
+    if (order.dtype != torch.int32 or order.dim() != 1
+            or not order.is_contiguous() or order.device != q.device):
+        raise ValueError(f"{name}: want a contiguous 1-D int32 order on "
+                         f"{q.device}, got {order.dtype} "
+                         f"{tuple(order.shape)} on {order.device}")
+
+
+def pack_stream_kernel(q, amp, gain, bt, cb, order, fs: int, cap: int):
+    """Launch K3 on CUDA tensors -> (body [N * cap] uint8, nbytes [N] int32,
+    status [2] int32 on the host)."""
     global launches
     nb = int(T.unified_layout(fs)["nb"])
-    check_decisions("pack_records_kernel", q, amp, gain, bt, cb, nb, True)
-    check_aligned("pack_records_kernel q", q)
+    check_decisions("pack_stream_kernel", q, amp, gain, bt, cb, nb, True)
+    check_order("pack_stream_kernel", order, q)
+    check_aligned("pack_stream_kernel q", q)
     if not 0 < cap <= MAX_CAP_BYTES:
-        raise ValueError(f"pack_records_kernel: cap {cap} outside "
+        raise ValueError(f"pack_stream_kernel: cap {cap} outside "
                          f"[1, {MAX_CAP_BYTES}]")
-    nf = q.shape[0]
-    rec = torch.empty((nf, cap), dtype=torch.uint8, device=q.device)
-    nbytes = torch.empty((nf,), dtype=torch.int32, device=q.device)
-    if nf == 0:
-        return rec, nbytes
-    codes, bands, width = _dev_tables(fs, str(q.device))
+    n = order.shape[0]
+    if n * cap >= 1 << 31:
+        raise ValueError(f"pack_stream_kernel: {n} records x cap {cap} "
+                         f"bytes do not fit a 31-bit offset")
+    dev = q.device
+    body = torch.empty((n * cap,), dtype=torch.uint8, device=dev)
+    nbytes = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n == 0:
+        return body, nbytes, torch.zeros(2, dtype=torch.int32)
+    warps = warps_per_block(cap)
+    status = torch.empty((2,), dtype=torch.int32, device=dev)
+    scratch = torch.empty((-(-n // warps) + 1,), dtype=torch.int64,
+                          device=dev)
+    codes, bands, real = _dev_tables(fs, str(dev))
     rc = _fn()(q.data_ptr(), amp.data_ptr(), gain.data_ptr(), bt.data_ptr(),
-               cb.data_ptr(), codes.data_ptr(), bands.data_ptr(),
-               width.data_ptr(), rec.data_ptr(), nbytes.data_ptr(), nf, nb,
-               cap, torch.cuda.current_stream(q.device).cuda_stream)
+               cb.data_ptr(), order.data_ptr(), codes.data_ptr(),
+               bands.data_ptr(), real.data_ptr(), body.data_ptr(),
+               nbytes.data_ptr(), status.data_ptr(), scratch.data_ptr(), n,
+               nb, cap, warps, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"record_pack launch failed: code {rc}")
     launches += 1
-    need = int(nbytes.max())
+    status = status.cpu()
+    need = int(status[1])
     if need > cap:
         raise ValueError(f"record_pack: a record needs {need} bytes, more "
                          f"than cap={cap}")
-    return rec, nbytes
+    return body, nbytes, status
 
 
 def random_decisions(rng, nf: int, fs: int):

@@ -1,15 +1,19 @@
-"""Record bytes built on the device (ops/device_pack.py, kernel K3) held
+"""Stream bodies built on the device (ops/device_pack.py, kernel K3) held
 against the JAX package on the CPU.
 
-The plain version of K3 (`device_pack.pack_records_plain`, what
-`pack_records` runs for CPU tensors) must equal the JAX
-`pack_records_device` byte for byte, rec and nbytes, and the port's
-native host packer, on random decisions that reach every codebook, block
-type and escape length at all three sample rates. `codec.encode(...,
-device="cpu")` (device-packed records) must equal the JAX
-`encode_device_packed` and the spec stream. K3 on the card is held
-against the plain version in tests/test_torch_kernels.py (`-m cuda`).
+The per-record plain packer (`device_pack.pack_records_plain`) must equal
+the JAX `pack_records_device` byte for byte, rec and nbytes, and the
+port's native host packer, on random decisions that reach every codebook,
+block type and escape length at all three sample rates. The plain version
+of K3 (`pack_stream_plain`, what `pack_stream` runs for CPU tensors) must
+give the JAX records of its `order` back to back, for a shuffled order
+and one that skips records. `codec.encode(..., device="cpu")` must equal
+the JAX `encode_device_packed` and the spec stream. K3 on the card is
+held against the plain version in tests/test_torch_kernels.py (`-m
+cuda`).
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -36,8 +40,28 @@ def _decisions(fs, nf=10, seed=0):
 
 
 def _pack_plain(d, fs, cap):
-    rec, nbytes = device_pack.pack_records(*map(torch.from_numpy, d), fs, cap)
+    rec, nbytes = device_pack.pack_records_plain(*map(torch.from_numpy, d),
+                                                 fs, cap)
     return rec.numpy(), nbytes.numpy()
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_records(fs, nf, cap):
+    """The JAX pack_records_device records of _decisions(fs, nf): (rec
+    [nf, cap], nbytes [nf]) as numpy."""
+    import jax.numpy as jnp
+    jrec, jn = jdevice_pack.pack_records_device(
+        *map(jnp.asarray, _decisions(fs, nf)), fs=fs, cap_bytes=cap)
+    return np.asarray(jrec), np.asarray(jn)
+
+
+def _order(kind, nf, rng):
+    if kind == "shuffled":
+        return rng.permutation(nf)
+    # skips records, as the corpus batch's pad frames are skipped, and
+    # takes the rest out of order
+    keep = np.flatnonzero(rng.random(nf) < 0.6)
+    return rng.permutation(keep)
 
 
 def test_random_decisions_reach_every_slot_kind():
@@ -68,6 +92,53 @@ def test_plain_matches_native_packer(fs):
     rec, nbytes = _pack_plain(d, fs, 2048)
     body = b"".join(rec[i, :n].tobytes() for i, n in enumerate(nbytes))
     assert body == native.pack_records_native(*d, fs)
+
+
+@pytest.mark.parametrize("kind", ["shuffled", "skipping"])
+@pytest.mark.parametrize("fs", RATES)
+def test_pack_stream_plain_is_jax_records_in_order(fs, kind):
+    nf, cap = 10, 1024
+    order = _order(kind, nf, np.random.default_rng(fs))
+    assert kind == "shuffled" or 0 < len(order) < nf
+    jrec, jn = _jax_records(fs, nf, cap)
+    body, nbytes, status = device_pack.pack_stream(
+        *map(torch.from_numpy, _decisions(fs, nf)),
+        torch.from_numpy(order.astype(np.int32)), fs, cap)
+    want = b"".join(jrec[r, :jn[r]].tobytes() for r in order)
+    total = len(want)
+    assert status.tolist() == [total, int(jn[order].max())]
+    np.testing.assert_array_equal(nbytes.numpy(), jn[order])
+    assert body.shape == (len(order) * cap,)
+    assert body[:total].numpy().tobytes() == want
+    assert not body[total:].any()
+
+
+def test_pack_stream_empty_order():
+    d = [torch.from_numpy(v) for v in _decisions(44100, nf=3)]
+    body, nbytes, status = device_pack.pack_stream(
+        *d, torch.zeros(0, dtype=torch.int32), 44100, 256)
+    assert body.numel() == nbytes.numel() == 0
+    assert status.tolist() == [0, 0]
+
+
+def test_stream_order_skips_pad_frames():
+    """A corpus chunk of frames [4, 8) over 3 stereo clips of 9, 6 and 3
+    true frames: clip by clip, frame by frame, channels within a frame."""
+    order, counts = encoder.stream_order(np.repeat([9, 6, 3], 2), 2, 4, 4, 6)
+    rec = lambda j, c, f: (j * 2 + c) * 4 + f - 4
+    want = ([rec(0, c, f) for f in range(4, 8) for c in (0, 1)]
+            + [rec(1, c, f) for f in range(4, 6) for c in (0, 1)])
+    assert order.dtype == np.int32 and order.tolist() == want
+    assert counts.tolist() == [8, 4, 0]
+    body = np.arange(sum(range(1, 13)), dtype=np.uint8)
+    parts = encoder.clip_slices(body, np.arange(1, 13), counts)
+    assert [len(p) for p in parts] == [36, 42, 0]
+    assert b"".join(parts) == body.tobytes()
+    whole, counts = encoder.stream_order(None, 2, 0, 5, 2)   # one clip
+    assert whole.tolist() == [0, 5, 1, 6, 2, 7, 3, 8, 4, 9]
+    assert counts.tolist() == [10]
+    mono, counts = encoder.stream_order(None, 1, 0, 5, 2)    # two clips
+    assert mono.tolist() == list(range(10)) and counts.tolist() == [5, 5]
 
 
 def _escape_clip():
@@ -138,17 +209,29 @@ def test_too_small_cap_raises():
     assert rec.shape == (4, need)
     with pytest.raises(ValueError, match="more than cap"):
         _pack_plain(d, 44100, need - 1)
+    order = torch.arange(4, dtype=torch.int32)
+    args = [*map(torch.from_numpy, d), order, 44100]
+    assert device_pack.pack_stream(*args, need)[2].tolist() == [
+        int(nbytes.sum()), need]
+    with pytest.raises(ValueError, match="more than cap"):
+        device_pack.pack_stream(*args, need - 1)
 
 
 def test_pack_records_rejects_bad_inputs():
     q, amp, gain, bt, cb = map(torch.from_numpy, _decisions(44100, nf=2))
+    order = torch.arange(2, dtype=torch.int32)
     with pytest.raises(ValueError, match="want contiguous"):
-        device_pack.pack_records(q.to(torch.int32), amp, gain, bt, cb,
-                                 44100, 512)
+        device_pack.pack_stream(q.to(torch.int32), amp, gain, bt, cb, order,
+                                44100, 512)
     with pytest.raises(ValueError, match="want contiguous"):
-        device_pack.pack_records(q, amp[:, :-1], gain, bt, cb, 44100, 512)
+        device_pack.pack_stream(q, amp[:, :-1], gain, bt, cb, order, 44100,
+                                512)
+    with pytest.raises(ValueError, match="int32 order"):
+        device_pack.pack_stream(q, amp, gain, bt, cb, order.long(), 44100,
+                                512)
     with pytest.raises(ValueError, match="want contiguous"):
-        record_pack.pack_records_kernel(q, amp, gain, bt, cb, 44100, 512)
+        record_pack.pack_stream_kernel(q, amp, gain, bt, cb, order, 44100,
+                                       512)
 
 
 def test_code_table_and_pair_band():

@@ -11,6 +11,12 @@ tuple ranges against `unified_layout(fs)["bin_band"]`, its pair tables
 against the code tables, a numpy model of its warp schedule (each lane's
 runs of tuples, the segmented scan over the lanes) against
 `payload_bits_plain`, and the 16-byte alignment check of its wrapper.
+K3 (csrc/record_pack.cu): which lane owns which pairs, bins and bands, a
+model of its lane runs (whole-word stores inside a run, ORs on its two
+edge words) against `pack_records_plain`'s bytes, a model of its
+decoupled look-back (tiles taken in order by a bounded number of resident
+blocks, finishing in random orders) against an exclusive cumsum, and its
+warps per block against the shared memory a block may use.
 """
 import numpy as np
 import pytest
@@ -22,7 +28,9 @@ from mrcaudiocodec_tpu import xmath as jxmath
 from mrcaudiocodec_tpu_torch import config as C
 from mrcaudiocodec_tpu_torch import tables as T
 from mrcaudiocodec_tpu_torch import xmath
-from mrcaudiocodec_tpu_torch.ops.kernels import fft_stages, quant_cost
+from mrcaudiocodec_tpu_torch.ops import device_pack
+from mrcaudiocodec_tpu_torch.ops.kernels import (fft_stages, quant_cost,
+                                                 record_pack)
 
 # ---------------------------------------------------------------------------
 # K1: the schedule, as csrc/fft_stages.cu computes it
@@ -407,3 +415,223 @@ def test_k2_alignment_check_rejects_offset_view():
     ints = torch.zeros(2 * C.LONG_COEFFS + 4, dtype=torch.int32)
     with pytest.raises(ValueError, match="16-byte aligned"):
         quant_cost.check_aligned("amp_bin", ints[2:2 * C.LONG_COEFFS + 2])
+
+
+# ---------------------------------------------------------------------------
+# K3: lane ownership, lane runs, the look-back, the block shape
+# ---------------------------------------------------------------------------
+
+PAIRS_PER_LANE = 16                 # kPairsPerLane
+HEAD_BITS = 31                      # kHeadBits
+
+
+def k3_lane_bands(nb, lane):
+    per_lane = (nb + 31) >> 5
+    return range(min(per_lane * lane, nb), min(per_lane * (lane + 1), nb))
+
+
+def k3_lane_pairs(lane):
+    return range(PAIRS_PER_LANE * lane, PAIRS_PER_LANE * (lane + 1))
+
+
+@pytest.mark.parametrize("nb", [1, 31, 32, 33, 88, 96, 128])
+def test_k3_lanes_cover_pairs_bins_and_bands_once(nb):
+    bands = [b for lane in range(32) for b in k3_lane_bands(nb, lane)]
+    assert bands == list(range(nb))                 # once each, in order
+    pairs = [p for lane in range(32) for p in k3_lane_pairs(lane)]
+    assert pairs == list(range(C.LONG_COEFFS // 2))
+    for lane in range(32):
+        # four 16-byte loads of int16 q: int4 words 4l .. 4l+3, bins
+        # 32l .. 32l+31; 32-bit word k of them holds pair 16l + k
+        bins = np.arange(32 * lane, 32 * lane + 32)
+        assert bins[0] // 8 == 4 * lane and bins[-1] // 8 == 4 * lane + 3
+        assert list(bins[::2] // 2) == list(k3_lane_pairs(lane))
+        # CB_SMALL's 4-tuple on even pair 2m covers pairs 2m, 2m + 1
+        for p in k3_lane_pairs(lane)[::2]:
+            assert p + 1 in k3_lane_pairs(lane)
+    for fs in (32000, 44100, 48000):
+        assert T.unified_layout(fs)["nb"] <= record_pack.NB_MAX
+
+
+def k3_runs(codes, lens, nb):
+    """One record's slots (device_pack.slots order) -> the kernel's runs
+    [(first bit, [(code, len), ...])]: lane 0's header, then per lane its
+    bands' codebook ids, its bands' scale-factor codewords and its pairs'
+    payload slots (three puts a pair), each placed by an exclusive scan
+    over the lanes."""
+    slot = list(zip(codes.tolist(), lens.tolist()))
+    cb = lambda b: slot[3 + b]
+    sf = lambda b: slot[3 + nb + b]
+
+    def pay(p):
+        """Pair p's slots as the kernel puts them: the main codeword and
+        its two sign bits as one code, then the two escapes."""
+        (mc, ml), (ac, al), (bc, bl), esc0, esc1 = \
+            slot[3 + 2 * nb + 5 * p:3 + 2 * nb + 5 * p + 5]
+        mask = lambda c, n: c & ((1 << n) - 1)
+        head = ((mask(mc, ml) << (al + bl)) | (mask(ac, al) << bl)
+                | mask(bc, bl))
+        assert ml + al + bl <= 22                   # under 32 bits a put
+        return [(head, ml + al + bl), esc0, esc1]
+    lanes = range(32)
+    runs_cb = [[cb(b) for b in k3_lane_bands(nb, l)] for l in lanes]
+    runs_sf = [[sf(b) for b in k3_lane_bands(nb, l)] for l in lanes]
+    runs_pay = [[s for p in k3_lane_pairs(l) for s in pay(p)] for l in lanes]
+    out = [(0, slot[:3])]
+    at = HEAD_BITS
+    for group in (runs_cb, runs_sf, runs_pay):
+        lengths = [sum(n for _, n in run) for run in group]
+        excl = np.concatenate([[0], np.cumsum(lengths)[:-1]])
+        out += [(at + int(e), run) for e, run in zip(excl, group)]
+        at += sum(lengths)
+    assert at == HEAD_BITS + int(lens[1:].sum()) - 11
+    return out
+
+
+def k3_write_runs(runs, n_words):
+    """The kernel's Run on each run: a 64-bit accumulator, MSB first,
+    whole big-endian words byte-swapped; a run's first and last word ORed,
+    its interior words stored. Asserts that no store lands on a word
+    another run touched and that no OR meets a set bit."""
+    words = [0] * n_words
+    owner = [None] * n_words                     # "store" / "or" / None
+    for off, slots in runs:
+        total = sum(n for _, n in slots)
+        if total == 0:
+            continue
+        w0, w1 = off >> 5, (off + total - 1) >> 5
+        state = {"acc": 0, "n": off & 31, "w": w0}
+
+        def emit(big):
+            w = state["w"]
+            v = int.from_bytes(int(big).to_bytes(4, "big"), "little")
+            if w < n_words:
+                if w in (w0, w1):
+                    assert owner[w] != "store" and not words[w] & v
+                    words[w] |= v
+                    owner[w] = "or"
+                else:
+                    assert owner[w] is None and words[w] == 0
+                    words[w] = v
+                    owner[w] = "store"
+            state["w"] = w + 1
+
+        for code, n in slots:
+            state["acc"] = (state["acc"] << n) | (code & ((1 << n) - 1))
+            state["n"] += n
+            if state["n"] >= 32:
+                state["n"] -= 32
+                emit(state["acc"] >> state["n"])
+                state["acc"] &= (1 << state["n"]) - 1
+        if state["n"] > 0:
+            emit((state["acc"] << (32 - state["n"])) & 0xFFFFFFFF)
+        assert state["w"] == w1 + 1
+    return np.array(words, np.uint32).view(np.uint8)
+
+
+@pytest.mark.parametrize("fs", [32000, 44100, 48000])
+def test_k3_lane_runs_reproduce_plain_bytes(fs):
+    nf, cap = 12, 1536
+    d = record_pack.random_decisions(np.random.default_rng(fs + 3), nf, fs)
+    d = [torch.from_numpy(v) for v in d]
+    rec, nbytes = device_pack.pack_records_plain(*d, fs, cap)
+    codes, lens, _ = device_pack.slots(*d, fs)
+    nb = T.unified_layout(fs)["nb"]
+    n_words = (cap + 3) >> 2
+    for r in range(nf):
+        got = k3_write_runs(k3_runs(codes[r], lens[r], nb), n_words)
+        assert got[:cap].tobytes() == rec[r].numpy().tobytes(), r
+        assert not got[int(nbytes[r]):].any()
+    # a cap that cuts the record: the words past it are dropped, the rest
+    # are the record's first bytes
+    short = int(nbytes[0]) // 2
+    got = k3_write_runs(k3_runs(codes[0], lens[0], nb), (short + 3) >> 2)
+    assert got[:short].tobytes() == rec[0, :short].numpy().tobytes()
+
+
+def k3_look_back(aggregates, blocks, rng, window=32):
+    """Decoupled look-back as the kernel runs it: `blocks` persistent
+    blocks, each in a loop: take the next tile from the counter, pack it
+    and publish its aggregate (tile 0 its inclusive prefix), then resolve
+    its previous tile, reading the status words of its `window` nearest
+    unread predecessors at once and spinning while one is unset; the
+    nearest inclusive prefix in a window ends the walk. Blocks move one
+    step at a time in a random order. -> each tile's exclusive prefix."""
+    n = len(aggregates)
+    status = [(0, 0)] * n                         # (flag, value)
+    offsets = [None] * n
+    taken = 0
+    state = [{"take": True, "cur": None, "prev": None, "walk": None}
+             for _ in range(blocks)]
+    live = list(range(blocks))
+    for _ in range(100 * n * n + 100 * blocks):
+        if not live:
+            return offsets
+        block = live[rng.integers(len(live))]
+        st = state[block]
+        if st["take"]:
+            cur = taken if taken < n else None
+            if cur is not None:
+                taken += 1
+                status[cur] = (2 if cur == 0 else 1, aggregates[cur])
+            prev = st["prev"]
+            st.update(take=False, cur=cur,
+                      walk=[prev - 1, 0] if prev else None)
+            if prev == 0:
+                offsets[0] = 0
+            continue
+        if st["walk"] is not None:
+            j, excl = st["walk"]
+            # lane l reads tile j - l; before tile 0 a zero prefix
+            seen = [status[k] if k >= 0 else (2, 0)
+                    for k in range(j, j - window, -1)]
+            if any(flag == 0 for flag, _ in seen):
+                continue                         # spin
+            last = next((l for l, (flag, _) in enumerate(seen)
+                         if flag == 2), None)
+            excl += sum(v for _, v in seen[:window if last is None
+                                           else last + 1])
+            if last is None:
+                st["walk"] = [j - window, excl]
+                continue
+            prev = st["prev"]
+            offsets[prev] = excl
+            status[prev] = (2, excl + aggregates[prev])
+            st["walk"] = None
+        if st["cur"] is None:
+            live.remove(block)
+        else:
+            st.update(take=True, prev=st["cur"])
+    raise AssertionError("the look-back did not finish")
+
+
+@pytest.mark.parametrize("tiles", [1, 2, 33, 150])
+def test_k3_look_back_gives_exclusive_cumsum(tiles):
+    rng = np.random.default_rng(tiles)
+    for resident in (1, 3, 8, tiles):
+        for window in (1, 4, 128):
+            agg = rng.integers(4 * 4, 8 * 933, tiles)   # 8 records a tile
+            want = np.concatenate([[0], np.cumsum(agg)[:-1]])
+            assert k3_look_back(list(agg), resident, rng,
+                                window) == want.tolist()
+
+
+@pytest.mark.parametrize("cap", [224, 376, 933, 32 * 1024])
+def test_k3_warps_per_block_fit_shared_memory(cap):
+    warps = record_pack.warps_per_block(cap)
+    assert 1 <= warps <= record_pack.MAX_WARPS
+    used = record_pack.STATIC_SMEM + record_pack.dyn_smem(cap, warps)
+    if warps > 1:
+        assert used <= record_pack.SMEM_LIMIT
+    else:                                        # the opt-in, one warp
+        assert used <= record_pack.SMEM_OPT_IN
+    if warps < record_pack.MAX_WARPS:            # one warp more would not
+        assert (record_pack.STATIC_SMEM + record_pack.dyn_smem(cap, warps + 1)
+                > record_pack.SMEM_LIMIT)
+    assert warps == (1 if cap == record_pack.MAX_CAP_BYTES else 8)
+    # two staging buffers a warp: at 32 KB one warp needs the opt-in
+    assert (used > record_pack.SMEM_LIMIT) == (cap == 32 * 1024)
+    # the .cu's static arrays: 572 codes, 2 + 8 + 16 ints, 5 x 512 + 5 x
+    # 128 B: 5592 B, rounded up to 16
+    assert 4 * (572 + 2 + 24) + 5 * (512 + 128) == 5592
+    assert record_pack.STATIC_SMEM == 5600

@@ -8,7 +8,9 @@ sizes. K2 (ops/kernels/quant_cost.py) replaces the Pallas
 equal the Pallas kernel run in interpret mode and the JAX XLA path
 (`rd._bits_for_gains`) exactly. K3 (ops/kernels/record_pack.py) has no
 Pallas counterpart; its plain version is held against the JAX
-`pack_records_device` in tests/test_torch_device_pack.py. Tests marked `cuda` need a card and
+`pack_records_device` in tests/test_torch_device_pack.py, and here (on a
+card) the kernel against it for stream orders that are in turn, shuffled
+or skipping, at record counts around a warp and a tile and up to 65536. Tests marked `cuda` need a card and
 skip here; the machine with the card has no JAX, so this module imports
 JAX only inside the tests that compare against it, and there the tests
 run as `MRC_TESTS_KEEP_TPU=1 python -m pytest tests/test_torch_kernels.py
@@ -312,28 +314,95 @@ def test_quant_kernel_matches_plain_on_card(g, fs):
     assert torch.equal(got.cpu(), want)
 
 
-def _pack_card_vs_plain(d, fs, cap):
-    """K3 on the card == its plain version on the CPU, rec and nbytes."""
+def _order(kind, nf, rng):
+    """Stream order over nf records: all in turn, shuffled, or skipping
+    about a third (as the corpus batch's pad frames are skipped), shuffled."""
+    if kind == "identity":
+        return np.arange(nf, dtype=np.int32)
+    if kind == "shuffled":
+        return rng.permutation(nf).astype(np.int32)
+    keep = np.flatnonzero(rng.random(nf) < 0.66)
+    return rng.permutation(keep if len(keep) else np.arange(1)
+                           ).astype(np.int32)
+
+
+def _decisions_for(nf, fs, seed):
+    """random_decisions, tiled from at most 4096 records for speed."""
+    base = record_pack.random_decisions(np.random.default_rng(seed),
+                                        min(nf, 4096), fs)
+    reps = -(-nf // len(base[0]))
+    return [np.ascontiguousarray(np.concatenate([v] * reps)[:nf])
+            for v in base]
+
+
+def _pack_card_vs_plain(d, fs, cap, order=None):
+    """K3 on the card == its plain version (on the CPU up to 4096 records,
+    on the card above), body, nbytes and status. -> the plain nbytes."""
     cpu = [torch.from_numpy(np.ascontiguousarray(v)) for v in d]
+    nf = cpu[0].shape[0]
+    order = torch.from_numpy(np.arange(nf, dtype=np.int32) if order is None
+                             else order)
+    card = [t.cuda() for t in cpu]
     before = record_pack.launches
-    rec, nbytes = device_pack.pack_records(*[t.cuda() for t in cpu], fs, cap)
+    body, nbytes, status = device_pack.pack_stream(*card, order.cuda(), fs,
+                                                   cap)
     assert record_pack.launches == before + 1
-    want_rec, want_n = device_pack.pack_records_plain(*cpu, fs, cap)
-    assert torch.equal(rec.cpu(), want_rec)
-    assert torch.equal(nbytes.cpu(), want_n)
-    return want_n
+    ref = cpu + [order] if nf <= 4096 else card + [order.cuda()]
+    want_body, want_n, want_status = device_pack.pack_stream_plain(
+        *ref, fs, cap)
+    total = int(want_status[0])
+    assert torch.equal(status, want_status)
+    assert torch.equal(nbytes.cpu(), want_n.cpu())
+    assert torch.equal(body[:total].cpu(), want_body[:total].cpu())
+    return want_n.cpu()
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nf", [1, 7, 300])
+@pytest.mark.parametrize("kind", ["identity", "shuffled", "skipping"])
+@pytest.mark.parametrize("nf", [1, 7, 8, 9, 31, 32, 33, 300, 8192, 65536])
 @pytest.mark.parametrize("fs", [44100, 48000, 32000])
-def test_record_pack_kernel_matches_plain_on_card(fs, nf):
-    """Random decisions: every codebook, block type, escapes up to QMAX."""
+def test_record_pack_kernel_matches_plain_on_card(fs, nf, kind):
+    """Random decisions: every codebook, block type, escapes up to QMAX;
+    one record, a tile (8 records at this cap) and one either side, a
+    warp's worth either side, and long look-back chains."""
     _need_card()
-    d = record_pack.random_decisions(np.random.default_rng(fs + nf), nf, fs)
-    _pack_card_vs_plain(d, fs, 2048)
+    assert record_pack.warps_per_block(2048) == 8
+    d = _decisions_for(nf, fs, fs + nf)
+    order = _order(kind, nf, np.random.default_rng(nf + len(kind)))
+    _pack_card_vs_plain(d, fs, 2048, order)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("nf", [1, 300])
+def test_record_pack_kernel_max_cap_on_card(nf):
+    """At the largest cap one warp's two staging buffers take more than
+    48 KB: a block of one warp, with the opt-in to more shared memory."""
+    _need_card()
+    cap = record_pack.MAX_CAP_BYTES
+    assert record_pack.warps_per_block(cap) == 1
+    assert (record_pack.STATIC_SMEM + record_pack.dyn_smem(cap, 1)
+            > record_pack.SMEM_LIMIT)
+    d = _decisions_for(nf, 48000, nf)
+    _pack_card_vs_plain(d, 48000, cap, _order("shuffled", nf,
+                                              np.random.default_rng(nf)))
+
+
+@pytest.mark.cuda
+def test_record_pack_kernel_repeats_identical_on_card():
+    """20 launches on one input give the same bytes (a race in the
+    look-back would show as a moved or torn record)."""
+    _need_card()
+    fs, nf = 44100, 8192
+    d = [torch.from_numpy(v).cuda() for v in _decisions_for(nf, fs, 11)]
+    order = torch.from_numpy(_order("skipping", nf,
+                                    np.random.default_rng(3))).cuda()
+    first = device_pack.pack_stream(*d, order, fs, 2048)
+    total = int(first[2][0])
+    for _ in range(20):
+        body, nbytes, status = device_pack.pack_stream(*d, order, fs, 2048)
+        assert torch.equal(status, first[2])
+        assert torch.equal(nbytes, first[1])
+        assert torch.equal(body[:total], first[0][:total])
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["zeros", "all_small", "all_mid",
                                   "max_escapes", "cap_exact"])
@@ -371,37 +440,52 @@ def test_record_pack_kernel_raises_on_small_cap_and_bad_input():
     fs = 44100
     d = [torch.from_numpy(v).cuda() for v in
          record_pack.random_decisions(np.random.default_rng(5), 6, fs)]
-    _, n = device_pack.pack_records(*d, fs, 2048)
+    order = torch.arange(6, dtype=torch.int32, device="cuda")
+    _, n, status = device_pack.pack_stream(*d, order, fs, 2048)
     need = int(n.max())
+    assert int(status[1]) == need
     with pytest.raises(ValueError, match="more than cap"):
-        device_pack.pack_records(*d, fs, need - 1)
+        device_pack.pack_stream(*d, order, fs, need - 1)
     q, amp, gain, bt, cb = d
     buf = torch.zeros(6 * 1024 + 8, dtype=torch.int16, device="cuda")
     shifted = buf[1:6 * 1024 + 1].view(6, 1024)        # 2-byte offset
     shifted.copy_(q)
     with pytest.raises(ValueError, match="16-byte aligned"):
-        record_pack.pack_records_kernel(shifted, amp, gain, bt, cb, fs, 2048)
+        record_pack.pack_stream_kernel(shifted, amp, gain, bt, cb, order, fs,
+                                       2048)
     with pytest.raises(ValueError, match="want contiguous"):
-        record_pack.pack_records_kernel(q.t().contiguous().t(), amp, gain,
-                                        bt, cb, fs, 2048)
+        record_pack.pack_stream_kernel(q.t().contiguous().t(), amp, gain,
+                                       bt, cb, order, fs, 2048)
     with pytest.raises(ValueError, match="want contiguous"):
-        record_pack.pack_records_kernel(q, amp.cpu(), gain, bt, cb, fs, 2048)
+        record_pack.pack_stream_kernel(q, amp.cpu(), gain, bt, cb, order, fs,
+                                       2048)
+    with pytest.raises(ValueError, match="int32 order"):
+        record_pack.pack_stream_kernel(q, amp, gain, bt, cb, order.cpu(), fs,
+                                       2048)
+    with pytest.raises(ValueError, match="int32 order"):
+        record_pack.pack_stream_kernel(q, amp, gain, bt, cb, order.long(),
+                                       fs, 2048)
 
 
 @pytest.mark.cuda
-def test_encode_launches_record_pack_on_card():
-    """A card encode packs its records with K3 and equals the CPU stream
-    and the host packer's."""
+@pytest.mark.parametrize("row_frames", [8192, 14])
+def test_encode_launches_record_pack_on_card(monkeypatch, row_frames):
+    """A card encode packs each chunk with one K3 launch and equals the CPU
+    stream and the host packer's."""
     _need_card()
+    from mrcaudiocodec_tpu_torch import config as C
     from mrcaudiocodec_tpu_torch.config import CodecConfig
     from mrcaudiocodec_tpu_torch.models import codec, encoder, packing
     rng = np.random.default_rng(9)
     x = np.clip(0.3 * rng.standard_normal((30000, 2)), -1, 1).astype(
         np.float32)
     cfg = CodecConfig(fs=44100, channels=2, bitrate=128000)
+    monkeypatch.setattr(encoder, "ENC_ROW_FRAMES", row_frames)
+    chunks = len(encoder.chunk_spans(C.frames_for_samples(x.shape[0]), 2))
+    assert (chunks == 1) == (row_frames == 8192)
     before = record_pack.launches
     bs = codec.encode(x, cfg, device="cuda")
-    assert record_pack.launches > before
+    assert record_pack.launches == before + chunks
     assert bs == codec.encode(x, cfg, device="cpu")
     dec, nf = encoder.encode_arrays(x, cfg, device="cuda")
     assert bs == packing.pack_stream(dec, nf, x.shape[0], cfg)
