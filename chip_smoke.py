@@ -56,7 +56,26 @@ Phases, in order; any failure raises, so the exit code is non-zero:
  11. the CLI: python -m mrcaudiocodec_tpu_torch.cli encode, info, decode in
      subprocesses on a WAV the script writes; the .mrc bytes == codec.encode
      and the WAV == codec.decode on the card
- 12. one JSON line listing the kernels
+ 12. the parallel path (parallel/), on the card: acceptance config 3 (5 min
+     48 kHz stereo 192 kbps) encoded on the card == its card encode with
+     K1-K3 swapped for their plain versions; (a) sharded encode, every
+     shard in turn in this process (LocalShards): the 30 s clip at (data,
+     seq) = (1, 4), (2, 2), (2, 1) == codec.encode, config 3 at (1, 4) ==
+     its unsharded encode, the 64 x 10 s batch at (4, 2) == phase 10's
+     streams; (b) sharded decode of the 30 s stream at (1, 4), (2, 2) ==
+     codec.decode float32 bitwise; the K1-K3 launch counts of (a) and of
+     (b); K1-K3 held bitwise to their plain versions on the inputs the
+     (1, 4) encodes and decode gave them (captured at the wrappers, every
+     shard's); walls of (a) at (1, 4) beside the unsharded encode; (c)
+     corpus.encode_batch over devices ["cuda:0", "cuda:0"] == the
+     one-device batch, and both timed; (d) parallel.launch scaling with
+     NCCL at world size 1 (a subprocess; its JSON line); (e) two pairs of
+     processes on the one card with gloo, side by side: launch corpus
+     --num-hosts 2 over a 10-clip mixed-length corpus (manifests partition
+     it, every .mrc == codec.encode) and a GroupShards encode at (1, 2), a
+     seq shard in each process (streams == codec.encode; each exchange's
+     host-clock ms)
+ 13. one JSON line listing the kernels
 The last line is {"ok": true, "device": {...}}. Without a CUDA card, or
 without the repository beside it, the script exits non-zero and prints no
 result.
@@ -268,15 +287,16 @@ def kernel_pair(name):
                             device_pack.pack_stream_plain)}[name]
 
 
-def capture_inputs(run):
+def capture_inputs(run, per_key: int = 1):
     """Run run() with K1's, K2's and K3's wrappers recording a copy of
-    their arguments -> {key: args} of the first call of each key: K1
-    ("fft_stages", shape), K2 ("quant_cost", (rows, G)), K3
-    ("record_pack", (records in the stream order,)), in call order."""
+    their arguments -> {key: args} of the first `per_key` calls of each
+    key: K1 ("fft_stages", shape), K2 ("quant_cost", (rows, G)), K3
+    ("record_pack", (records in the stream order,)), in call order; the
+    i-th call (i > 0) of a key is stored under key + (i,)."""
     import torch
     from mrcaudiocodec_tpu_torch.ops.kernels import (fft_stages, quant_cost,
                                                      record_pack)
-    seen = {}
+    seen, calls = {}, {}
     hooks = ((fft_stages, "fft_kernel",
               lambda a: ("fft_stages", tuple(a[0].shape))),
              (quant_cost, "payload_bits_kernel",
@@ -290,9 +310,11 @@ def capture_inputs(run):
 
         def rec(*args, _orig=orig, _key_of=key_of):
             key = _key_of(args)
-            if key not in seen:
-                seen[key] = tuple(a.clone() if isinstance(a, torch.Tensor)
-                                  else a for a in args)
+            i = calls[key] = calls.get(key, -1) + 1
+            if i < per_key:
+                seen[key + ((i,) if i else ())] = tuple(
+                    a.clone() if isinstance(a, torch.Tensor) else a
+                    for a in args)
             return _orig(*args)
         setattr(mod, attr, rec)
     try:
@@ -302,6 +324,39 @@ def capture_inputs(run):
         for mod, attr, orig in saved:
             setattr(mod, attr, orig)
     return seen
+
+
+def plain_path(run):
+    """run() with K1's, K2's and K3's wrappers replaced by their plain
+    PyTorch versions (on the same card) -> what run() returns."""
+    from mrcaudiocodec_tpu_torch.ops.kernels import (fft_stages, quant_cost,
+                                                     record_pack)
+    swaps = ((fft_stages, "fft_kernel"), (quant_cost, "payload_bits_kernel"),
+             (record_pack, "pack_stream_kernel"))
+    saved = [getattr(mod, attr) for mod, attr in swaps]
+    try:
+        for mod, attr in swaps:
+            setattr(mod, attr, kernel_pair(mod.__name__.rsplit(".", 1)[-1])[1])
+        return run()
+    finally:
+        for (mod, attr), orig in zip(swaps, saved):
+            setattr(mod, attr, orig)
+
+
+def hold_to_plain(caps, where, err):
+    """Each captured input of caps (capture_inputs) through the kernel and
+    its plain version, bitwise; err: max |err| by kernel, updated."""
+    for key, args in caps.items():
+        kernel, plain = kernel_pair(key[0])
+        got, want = outputs(key[0], kernel(*args), plain(*args))
+        ok = all(bits_equal(g, w) for g, w in zip(got, want))
+        err[key[0]] = max([err[key[0]]] + [max_abs_err(g, w)
+                                            for g, w in zip(got, want)])
+        call = f" (call {key[2] + 1})" if len(key) > 2 else ""
+        log(f"[kernels] {key[0]} on the {where} path's own input "
+            f"{key[1]}{call}: kernel == plain bitwise: {ok}")
+        check(ok, f"{key[0]} {key[1]}{call} ({where}) differs from its "
+              f"plain version")
 
 
 def main_path_inputs(dev):
@@ -452,16 +507,7 @@ def phase_kernels(dev):
     # the three kernels on the inputs the main path gives them
     inputs = main_path_inputs(dev)
     for where, caps in inputs.items():
-        for key, args in caps.items():
-            kernel, plain = kernel_pair(key[0])
-            got, want = outputs(key[0], kernel(*args), plain(*args))
-            ok = all(bits_equal(g, w) for g, w in zip(got, want))
-            err[key[0]] = max([err[key[0]]] + [max_abs_err(g, w) for g, w
-                                                in zip(got, want)])
-            log(f"[kernels] {key[0]} on the {where} path's own input "
-                f"{key[1]}: kernel == plain bitwise: {ok}")
-            check(ok, f"{key[0]} {key[1]} ({where}) differs from its plain "
-                  f"version")
+        hold_to_plain(caps, where, err)
     return err, inputs
 
 
@@ -1258,7 +1304,7 @@ def phase_corpus(dev):
         f"{stats['busy_share']}; K1 {tot['fft_stages_kernel']}, K2 "
         f"{tot['quant_cost_kernel']}, K3 {tot['record_pack_kernel']} "
         f"(launches, device ms)")
-    return launches, stats
+    return launches, stats, outs
 
 
 def phase_cli(dev):
@@ -1296,6 +1342,335 @@ def phase_cli(dev):
         check(bits_equal(y, want), "the CLI's WAV differs from codec.decode")
 
 
+# ---------------------------------------------------------------------------
+# The parallel path (parallel/)
+# ---------------------------------------------------------------------------
+
+
+def parallel_clips():
+    """The clips of the two-process GroupShards encode: the benchmark clip
+    and a 7.3 s stereo int16 clip (one dtype, mixed lengths)."""
+    cfg, xi = full_clip()
+    return cfg, [xi, to_i16(make_clip(44100, 7.3, 2, seed=9))]
+
+
+def group_shards_worker(rank, world, port, out_dir):
+    """One of `world` processes on card 0 under gloo: its seq shard of the
+    sharded encode of parallel_clips() at (data, seq) = (1, world). Writes
+    the streams it holds, what its exchange was, and the host-clock ms of
+    each exchange and of the whole encode in a second (warm) run."""
+    import os
+    import torch
+    import torch.distributed as dist
+    from mrcaudiocodec_tpu_torch.parallel import mesh, sharded
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    try:
+        cfg, clips = parallel_clips()
+        grid = mesh.make_grid(1, world)
+        ex = sharded.GroupShards(grid, "cuda")
+        # host-clock ms of each exchange (the shard layers of PERF.md §3),
+        # each closed by a synchronize
+        laps = {}
+        for name in ("halo", "seq_sum", "seq_all_gather",
+                     "seq_gather_bytes"):
+            def timed(*a, _f=getattr(ex, name), _n=name):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _f(*a)
+                torch.cuda.synchronize()
+                laps[_n] = laps.get(_n, 0.0) + (time.perf_counter() - t0) * 1e3
+                return out
+            setattr(ex, name, timed)
+        rows, nf_row, n_samples = sharded.pad_rows(clips, world)
+        for _ in range(2):                 # the second run is the warm one
+            laps.clear()
+            t0 = time.perf_counter()
+            streams = sharded.sharded_encode(rows, nf_row, cfg, grid, ex,
+                                             n_samples=n_samples)
+            laps["encode"] = (time.perf_counter() - t0) * 1e3
+        for j, st in enumerate(streams):
+            if st is not None:
+                with open(os.path.join(out_dir, f"r{rank}_c{j}.mrc"),
+                          "wb") as f:
+                    f.write(st)
+        with open(os.path.join(out_dir, f"r{rank}.json"), "w") as f:
+            json.dump({"coords": ex.local[0], "device": str(ex.device),
+                       "staged": ex.staged, "ms": laps}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_parallel(dev, corpus_streams, err):
+    """The parallel path on the card (phase 12 of the module docstring).
+    corpus_streams: phase 10's 64 fused streams; err: max |err| by kernel,
+    updated with this path's own inputs held to the plain versions.
+    -> stats."""
+    import os
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    from mrcaudiocodec_tpu_torch import audiofile, corpus
+    from mrcaudiocodec_tpu_torch.config import CodecConfig, frames_for_samples
+    from mrcaudiocodec_tpu_torch.models import codec
+    from mrcaudiocodec_tpu_torch.ops.kernels import (fft_stages, quant_cost,
+                                                     record_pack)
+    from mrcaudiocodec_tpu_torch.parallel import launch, mesh, sharded
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    kernels = (fft_stages, quant_cost, record_pack)
+
+    def zero_counts():
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+
+    def read_counts():
+        torch.cuda.synchronize()
+        return {k.__name__.rsplit(".", 1)[-1]: k.launches for k in kernels}
+
+    def encode(clips, cfg, n_data, n_seq):
+        grid = mesh.make_grid(n_data, n_seq)
+        rows, nf_row, n_samples = sharded.pad_rows(clips, n_seq)
+        return sharded.sharded_encode(rows, nf_row, cfg, grid,
+                                      sharded.LocalShards(grid, dev),
+                                      n_samples=n_samples)
+
+    def decode(data, n_data, n_seq):
+        grid = mesh.make_grid(n_data, n_seq)
+        return sharded.sharded_decode(data, grid,
+                                      sharded.LocalShards(grid, dev))[0]
+
+    # the unsharded references first: the counts below are the sharded runs'
+    cfg, xi = full_clip()
+    want = codec.encode(xi, cfg, device=dev)
+    y_want, _ = codec.decode(want, device=dev, pcm_dtype="float32")
+    cfg3 = CodecConfig(fs=48000, channels=2, bitrate=192000,
+                       full_psycho=True, reservoir=True)
+    x3 = make_clip(48000, 300.0, 2, seed=3)
+    t0 = time.perf_counter()
+    want3 = codec.encode(x3, cfg3, device=dev)
+    t_un3 = time.perf_counter() - t0
+    # config 3's card stream held to the card encode with every kernel
+    # replaced by its plain version
+    t0 = time.perf_counter()
+    plain3 = plain_path(lambda: codec.encode(x3, cfg3, device=dev))
+    log(f"[parallel] config 3 card stream == the card encode through the "
+        f"plain versions of K1, K2, K3: {want3 == plain3} (plain run "
+        f"{time.perf_counter() - t0:.2f} s host clock)")
+    check(want3 == plain3, "config 3's card stream differs from its plain "
+          "encode")
+    del plain3
+    clips = corpus._synth_corpus(64, 10.0)
+
+    caps = {}
+
+    def captured(where, fn):
+        """fn() with its kernel inputs captured into caps[where]: the first
+        8 calls of each kernel and shape, so every shard's analysis, first
+        RD passes and pack."""
+        box = []
+        caps[where] = capture_inputs(lambda: box.append(fn()), 8)
+        return box[0]
+
+    # (a) sharded encode, every shard in turn on this card
+    zero_counts()
+    for n_data, n_seq in ((1, 4), (2, 2), (2, 1)):
+        if (n_data, n_seq) == (1, 4):
+            got = captured("sharded 30 s (1, 4) encode",
+                           lambda: encode([xi], cfg, 1, 4)[0])
+        else:
+            got = encode([xi], cfg, n_data, n_seq)[0]
+        log(f"[parallel] (a) 30 s stereo int16 at (data, seq) = ({n_data}, "
+            f"{n_seq}): stream == codec.encode on the card: {got == want} "
+            f"({len(got)} bytes)")
+        check(got == want, f"sharded encode ({n_data}, {n_seq}) differs")
+    t0 = time.perf_counter()
+    got3 = captured("sharded config 3 (1, 4) encode",
+                    lambda: encode([x3], cfg3, 1, 4)[0])
+    t_sh3 = time.perf_counter() - t0
+    log(f"[parallel] (a) config 3 (5 min 48 kHz stereo 192 kbps, full "
+        f"psycho, reservoir; {frames_for_samples(x3.shape[0])} frames a "
+        f"channel) at (1, 4): stream == its unsharded card encode: "
+        f"{got3 == want3} ({len(want3)} bytes, sha256 "
+        f"{hashlib.sha256(want3).hexdigest()}; first runs: unsharded "
+        f"{t_un3:.2f} s, sharded with its inputs captured {t_sh3:.2f} s "
+        f"host clock)")
+    check(got3 == want3, "config 3 sharded at (1, 4) differs")
+    outs = encode(clips, cfg, 4, 2)
+    same = sum(o == w for o, w in zip(outs, corpus_streams))
+    log(f"[parallel] (a) 64 x 10 s batch at (4, 2): streams == phase 10's "
+        f"fused streams: {same}/{len(clips)}")
+    check(same == len(clips), "a sharded corpus stream differs")
+    enc_launch = read_counts()
+    log(f"[parallel] (a) launches in the sharded encodes: {enc_launch}")
+    for name, n in enc_launch.items():
+        check(n > 0, f"the sharded encodes launched no {name}")
+
+    # (b) sharded decode
+    zero_counts()
+    for n_data, n_seq in ((1, 4), (2, 2)):
+        if (n_data, n_seq) == (1, 4):
+            y = captured("sharded 30 s (1, 4) decode",
+                         lambda: decode(want, 1, 4))
+        else:
+            y = decode(want, n_data, n_seq)
+        same = bits_equal(y, y_want)
+        log(f"[parallel] (b) decode of the 30 s stream at ({n_data}, "
+            f"{n_seq}): PCM == codec.decode float32 bitwise: {same}")
+        check(same, f"sharded decode ({n_data}, {n_seq}) differs")
+    dec_launch = read_counts()
+    log(f"[parallel] (b) launches in the sharded decodes: {dec_launch} "
+        f"(a decode runs K1 only)")
+    check(dec_launch["fft_stages"] > 0,
+          "the sharded decodes launched no fft_stages")
+
+    # the kernels on this path's own inputs (shard chunks of 648 and 7032
+    # frame rows, stream orders from f0 > 0, 48 kHz at 192 kbps)
+    for where, c in caps.items():
+        log(f"[parallel] {where}: {len(c)} kernel inputs captured")
+        hold_to_plain(c, where, err)
+    del caps
+    torch.cuda.empty_cache()
+
+    # walls: S shards in turn on one card, beside the unsharded encode
+    walls = {"unsharded": [], "sharded_1x4": []}
+    runs = {"unsharded": lambda: codec.encode(xi, cfg, device=dev),
+            "sharded_1x4": lambda: encode([xi], cfg, 1, 4)}
+    for _ in range(6):                   # the first round is a warm-up
+        for name, fn in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+    stats = {k: {"ms": v[1:], "best_ms": min(v[1:]),
+                 "median_ms": float(np.median(v[1:]))}
+             for k, v in walls.items()}
+    log(f"[parallel] walls of a 30 s stereo encode, 5 runs after a warm-up, "
+        f"in turns; S shards in turn on one card (an overhead, not "
+        f"scaling): unsharded best {stats['unsharded']['best_ms']:.2f} ms, "
+        f"median {stats['unsharded']['median_ms']:.2f}; (1, 4) best "
+        f"{stats['sharded_1x4']['best_ms']:.2f} ms, median "
+        f"{stats['sharded_1x4']['median_ms']:.2f}; ms "
+        f"{json.dumps({k: v['ms'] for k, v in stats.items()})}")
+
+    # (c) the data axis over two devices (both card 0, a host thread each),
+    # and its walls beside the one-device batch, in turns
+    two = corpus.encode_batch(clips, cfg, devices=["cuda:0", "cuda:0"])
+    same = sum(a == b for a, b in zip(two, corpus_streams))
+    log(f"[parallel] (c) encode_batch over devices ['cuda:0', 'cuda:0'] == "
+        f"the one-device batch: {same}/{len(clips)}")
+    check(same == len(clips), "the two-device batch differs")
+    del outs, two
+    batch_ms = {"one": [], "two": []}
+    for _ in range(3):
+        for name, devs in (("one", ["cuda:0"]), ("two", ["cuda:0"] * 2)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            corpus.encode_batch(clips, cfg, devices=devs)
+            batch_ms[name].append((time.perf_counter() - t0) * 1e3)
+    log(f"[parallel] (c) 64 x 10 s batch walls, 3 runs each in turns, ms: "
+        f"one device {batch_ms['one']}, two blocks on card 0 in two host "
+        f"threads {batch_ms['two']} (one card: the threads share it)")
+    stats["batch_ms"] = batch_ms
+    del clips
+
+    # (d) launch scaling, NCCL at world size 1
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "mrcaudiocodec_tpu_torch.parallel.launch",
+         "scaling", "--backend", "nccl"], cwd=root, capture_output=True,
+        text=True, timeout=300)
+    log(f"[parallel] (d) launch scaling --backend nccl: exit "
+        f"{res.returncode} in {time.perf_counter() - t0:.1f} s; stderr: "
+        + " | ".join(res.stderr.strip().splitlines()[-3:]))
+    check(res.returncode == 0, f"launch scaling failed: {res.stderr}")
+    scaling = json.loads(res.stdout.strip().splitlines()[-1])
+    log(f"[parallel] (d) {json.dumps(scaling)}")
+    check(scaling["backend"] == "nccl" and scaling["world_size"] == 1,
+          "launch scaling did not run NCCL at world size 1")
+
+    # (e) two processes on the one card, gloo
+    with tempfile.TemporaryDirectory() as tmp:
+        indir, outdir, gdir = (os.path.join(tmp, d)
+                               for d in ("in", "out", "group"))
+        os.makedirs(indir)
+        os.makedirs(gdir)
+        paths = []
+        for i in range(10):
+            p = os.path.join(indir, f"clip{i:02d}.wav")
+            audiofile.write_wav(p, corpus._synth_corpus(
+                1, 0.6 * (1.0 + 0.3 * (i % 3)), seed=50 + i)[0], 44100)
+            paths.append(p)
+        # the corpus pair runs while the GroupShards pair below runs
+        port = launch.free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "mrcaudiocodec_tpu_torch.parallel.launch",
+             "corpus", "--coordinator", f"localhost:{port}", "--num-hosts",
+             "2", "--host-id", str(h), "--indir", indir, "--outdir", outdir,
+             "--backend", "gloo"], cwd=root, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for h in range(2)]
+        mp.spawn(group_shards_worker, args=(2, launch.free_port(), gdir),
+                 nprocs=2, join=True)
+        t_group = time.perf_counter() - t0
+        done = [p.communicate(timeout=300) for p in procs]
+        t_corpus = time.perf_counter() - t0
+        for h, (p, (out, err)) in enumerate(zip(procs, done)):
+            log(f"[parallel] (e) launch corpus host {h}: exit {p.returncode}; "
+                f"stderr: {' | '.join(err.strip().splitlines()[-2:])}; "
+                f"stdout: {out.strip()}")
+            check(p.returncode == 0, f"launch corpus host {h} failed: {err}")
+            check("staged through host memory" in err,
+                  "the gloo run on the card does not say it stages")
+        srcs = []
+        for h in range(2):
+            with open(os.path.join(outdir, f"manifest_h{h}.jsonl")) as f:
+                srcs.append({json.loads(line)["src"] for line in f})
+        split = srcs == [set(paths[0::2]), set(paths[1::2])]
+        same = 0
+        for p in paths:
+            x, _ = audiofile.read_wav(p, raw_int16=True)
+            with open(os.path.join(outdir, os.path.basename(p)[:-4]
+                                   + ".mrc"), "rb") as f:
+                same += f.read() == codec.encode(x, cfg, device=dev)
+        log(f"[parallel] (e) launch corpus, 2 processes, done "
+            f"{t_corpus:.1f} s after their start: "
+            f"manifests partition the corpus round-robin: {split}; .mrc == "
+            f"codec.encode on the card: {same}/{len(paths)}")
+        check(split, "the manifests do not partition the corpus")
+        check(same == len(paths), "a launch corpus stream differs")
+
+        _, pclips = parallel_clips()
+        wants = [codec.encode(x, cfg, device=dev) for x in pclips]
+        held = sorted(n for n in os.listdir(gdir) if n.endswith(".mrc"))
+        check(held == [f"r0_c{j}.mrc" for j in range(len(wants))],
+              f"the first seq rank does not hold every stream: {held}")
+        same = 0
+        for j, w in enumerate(wants):
+            with open(os.path.join(gdir, f"r0_c{j}.mrc"), "rb") as f:
+                same += f.read() == w
+        info = []
+        for r in range(2):
+            with open(os.path.join(gdir, f"r{r}.json")) as f:
+                info.append(json.load(f))
+        log(f"[parallel] (e) GroupShards at (1, 2), a seq shard in each of 2 "
+            f"processes on card 0 (gloo), beside the corpus pair, in "
+            f"{t_group:.1f} s: {info}; streams "
+            f"held {held}; == codec.encode on the card: {same}/{len(wants)}")
+        check(same == len(wants), "a GroupShards stream differs")
+        check(all(i["staged"] for i in info), "gloo on the card not staged")
+
+    stats.update(launches_encode=enc_launch, launches_decode=dec_launch,
+                 config3_bytes=len(want3), scaling=scaling,
+                 corpus_2proc_s=t_corpus, group_2proc_s=t_group,
+                 phase_s=time.perf_counter() - t_phase)
+    log(f"[parallel] phase done in {stats['phase_s']:.1f} s")
+    return stats
+
+
 def main() -> int:
     try:
         import torch
@@ -1324,8 +1699,10 @@ def main() -> int:
     launches, stats = phase_full(dev)
     phase_breakdown(dev)
     probe_launches, probe_stats = phase_probes(dev)
-    _, corpus_stats = phase_corpus(dev)
+    _, corpus_stats, corpus_streams = phase_corpus(dev)
     phase_cli(dev)
+    parallel_stats = phase_parallel(dev, corpus_streams, errs)
+    del corpus_streams
     meta = {
         "fft_stages": ("cuda", "mrcaudiocodec_tpu_torch/csrc/fft_stages.cu",
                        "mrcaudiocodec_tpu/ops/pallas/xmath_kernel.py:93"),
@@ -1348,7 +1725,8 @@ def main() -> int:
                         "launches": probe_launches[body], "checked": True,
                         **probe_stats[body]})
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s; "
-        f"stats {json.dumps(stats)}; corpus {json.dumps(corpus_stats)}")
+        f"stats {json.dumps(stats)}; corpus {json.dumps(corpus_stats)}; "
+        f"parallel {json.dumps(parallel_stats)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,9 @@ A second package beside the JAX reference `mrcaudiocodec_tpu`, with the
 same layout: `config`, `tables`, `utils/bits`, `bitstream`, `xmath`,
 `xpsy`, `ops/{dsp,psycho,quantize,reservoir,entropy,rd}`,
 `ops/kernels/{fft_stages,quant_cost}` (CUDA sources under `csrc/`),
-`models/{packing,encoder,decoder,codec}` and `native/`. It imports torch
-and numpy, never JAX or the JAX package.
+`models/{packing,encoder,decoder,codec}`, `native/`, `corpus`, `cli`,
+`probes/` and `parallel/{mesh,sharded,launch}`. It imports torch and
+numpy, never JAX or the JAX package.
 
 Entry points: `models.codec.encode(x, cfg, device="cuda")` and
 `models.codec.decode(data, device="cuda", pcm_dtype="float32")`.

@@ -1,11 +1,13 @@
-"""Corpus runner: batched encode of many clips on one card, with a
-completion manifest for cheap restart.
+"""Corpus runner: batched encode of many clips over the local cards, with
+a completion manifest for cheap restart.
 
 Port of mrcaudiocodec_tpu/corpus.py. Clips that share channel count and
 dtype run as one fused batch (every channel of every clip is one row of
-`encoder.encode_rows`, records built on the device); streams are
-byte-identical to encoding each clip alone. Spreading rows over several
-cards is `parallel/`'s work (not ported yet).
+`encoder.encode_rows`, records built on the device), spread in contiguous
+blocks of whole clips over a list of devices (the data axis; default:
+every local card), a host thread a block; streams are byte-identical to
+encoding each clip alone. Across processes, `parallel/launch.py corpus`
+splits the files by rank.
 
     python -m mrcaudiocodec_tpu_torch.corpus run INDIR OUTDIR --bitrate 128
     python -m mrcaudiocodec_tpu_torch.corpus bench --clips 64 --seconds 10
@@ -16,6 +18,8 @@ exit non-zero.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
+import contextlib
 import glob
 import json
 import os
@@ -23,6 +27,8 @@ import sys
 import time
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from . import audiofile
 from . import config as C
@@ -35,14 +41,25 @@ from .models import encoder
 FRAME_BUCKET = 64
 
 
+def local_devices(device="cuda") -> list[str]:
+    """The devices a batch spreads over by default: every local card for
+    "cuda", else the one device named (raises for "cuda" without one)."""
+    dev = encoder.device_for(device)
+    if dev.type == "cuda" and dev.index is None:
+        return [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    return [str(dev)]
+
+
 def encode_batch(clips: list[np.ndarray], cfg: CodecConfig,
-                 device="cuda") -> list[bytes]:
+                 device="cuda", devices=None) -> list[bytes]:
     """Encode clips, batching the device work across clips where possible.
 
     Each clip is [n] or [n, channels] float32 (or int16). Clips that
     share channel count and dtype (lengths may differ) run through the
-    fused path; otherwise each clip is encoded alone. Streams are
+    fused path, spread over `devices` (default `local_devices(device)`);
+    otherwise each clip is encoded alone on the first of them. Streams are
     byte-identical either way."""
+    devices = list(devices or local_devices(device))
     arrs = []
     for x in clips:
         x = np.asarray(x)
@@ -54,19 +71,27 @@ def encode_batch(clips: list[np.ndarray], cfg: CodecConfig,
     if (len(arrs) > 1
             and len({a.shape[1] for a in arrs}) == 1
             and len({a.dtype for a in arrs}) == 1):
-        return _encode_batch_fused(arrs, cfg, device)
-    return [encoder.encode(x, cfg, device) for x in arrs]
+        return _encode_batch_fused(arrs, cfg, devices)
+    return [encoder.encode(x, cfg, devices[0]) for x in arrs]
+
+
+def _on_device(dev: torch.device):
+    """Make `dev` the current card (nothing for the CPU)."""
+    return (torch.cuda.device(dev) if dev.type == "cuda"
+            else contextlib.nullcontext())
 
 
 def _encode_batch_fused(arrs: list[np.ndarray], cfg: CodecConfig,
-                        device) -> list[bytes]:
-    """Same-channel-count, same-dtype clips -> one batch of rows on one
-    device. Each row is tail-padded with silence to a shared frame count
-    (a FRAME_BUCKET multiple); each row's true frame count goes to the
-    reservoir, the only whole-clip quantity, so pad frames change no
-    byte, and stream order leaves them out of every body. int16 sources
-    stay int16 through the upload."""
-    dev = encoder.device_for(device)
+                        devices: list) -> list[bytes]:
+    """Same-channel-count, same-dtype clips -> batches of rows, one
+    contiguous block of whole clips a device (mrcaudiocodec_tpu/corpus.py
+    :94-113 shards the rows over the local devices), each encoded under
+    its device in a host thread of its own, so one device's host work
+    overlaps another's kernels. Each row is tail-padded with silence to a shared
+    frame count (a FRAME_BUCKET multiple); each row's true frame count
+    goes to the reservoir, the only whole-clip quantity, so pad frames
+    change no byte, and stream order leaves them out of every body. int16
+    sources stay int16 through the upload."""
     nch = arrs[0].shape[1]
     n_list = [a.shape[0] for a in arrs]
     nf_list = [frames_for_samples(n) for n in n_list]
@@ -75,22 +100,40 @@ def _encode_batch_fused(arrs: list[np.ndarray], cfg: CodecConfig,
     nf_row = np.repeat(nf_list, nch)
     for i, a in enumerate(arrs):
         P[i * nch:(i + 1) * nch, 2 * C.HOP:2 * C.HOP + n_list[i]] = a.T
-    bodies = encoder.encode_rows(P, nf_row, cfg, dev)
+    per = -(-len(arrs) // min(len(devices), len(arrs)))    # clips a block
+    blocks = [(encoder.device_for(devices[i]),
+               slice(k * nch, min(k + per, len(arrs)) * nch))
+              for i, k in enumerate(range(0, len(arrs), per))]
+
+    def run(block):
+        dev, rows = block
+        with _on_device(dev):
+            return encoder.encode_rows(P[rows], nf_row[rows], cfg, dev)
+
+    if len(blocks) == 1:
+        bodies = run(blocks[0])
+    else:                   # one host thread a block: the devices overlap
+        with concurrent.futures.ThreadPoolExecutor(len(blocks)) as pool:
+            bodies = [b for got in pool.map(run, blocks) for b in got]
     return [encoder.header(cfg, nf_list[i], n_list[i]) + bodies[i]
             for i in range(len(arrs))]
 
 
 def run_corpus(paths: list[str], outdir: str, cfg_base: dict,
                manifest_path: str | None = None,
-               group_size: int | None = None, device="cuda") -> dict:
+               group_size: int | None = None, device="cuda",
+               devices=None) -> dict:
     """Encode files with manifest-based resume. Returns stats.
 
     Clips are bucketed by (fs, channels, dtype, ceil(frames/FRAME_BUCKET))
-    and each bucket is encoded as one fused batch (encode_batch). The
-    manifest is written per flushed group, so restart cost is bounded by
-    group_size clips. `devices_local` and `devices_global` count the cards
-    a batch runs on: one."""
-    encoder.device_for(device)
+    and each bucket is encoded as one fused batch (encode_batch) over
+    `devices` (default `local_devices(device)`). The manifest is written
+    per flushed group, so restart cost is bounded by group_size clips
+    (default max(4 * devices_global, 16)). `devices_local` counts the
+    devices this process spreads a batch over, `devices_global` those of
+    every process of the process group (world size x devices_local)."""
+    devices = list(devices or local_devices(device))
+    world = dist.get_world_size() if dist.is_initialized() else 1
     os.makedirs(outdir, exist_ok=True)
     manifest_path = manifest_path or os.path.join(outdir, "manifest.jsonl")
     done = set()
@@ -107,9 +150,10 @@ def run_corpus(paths: list[str], outdir: str, cfg_base: dict,
     todo = [p for p in paths if p not in done]
     stats = {"total": len(paths), "skipped": len(paths) - len(todo),
              "encoded": 0, "audio_seconds": 0.0, "wall_seconds": 0.0,
-             "devices_local": 1, "devices_global": 1, "batches": 0}
+             "devices_local": len(devices),
+             "devices_global": len(devices) * world, "batches": 0}
     if group_size is None:
-        group_size = 16
+        group_size = max(4 * stats["devices_global"], 16)
     t0 = time.perf_counter()
     pending: dict[tuple, list[tuple[str, np.ndarray]]] = {}
     used_dst: set[str] = set()
@@ -136,7 +180,8 @@ def run_corpus(paths: list[str], outdir: str, cfg_base: dict,
                 return
             fs, nch = key[0], key[1]
             cfg = CodecConfig(fs=fs, channels=nch, **cfg_base)
-            datas = encode_batch([x for _, x in group], cfg, device)
+            datas = encode_batch([x for _, x in group], cfg,
+                                 devices=devices)
             for (path, x), data in zip(group, datas):
                 dst = dst_for(path)
                 with open(dst, "wb") as f:

@@ -557,8 +557,10 @@ int mrc_record_pack(const int16_t* q, const int8_t* amp, const int16_t* gain,
     if (e != cudaSuccess) return (int)e;
     if (n == 0) return 0;
     // the grid: blocks resident on the device at this block shape, queried
-    // once per (device, warps, cap)
-    static int last_device = -1, last_warps = 0, last_cap = 0, resident = 0;
+    // once per (device, warps, cap) in each host thread (the current
+    // device is a thread's own, and threads may drive different cards)
+    static thread_local int last_device = -1, last_warps = 0, last_cap = 0,
+                            resident = 0;
     int device = 0;
     e = cudaGetDevice(&device);
     if (e != cudaSuccess) return (int)e;

@@ -36,9 +36,10 @@ def parse_records(data: bytes):
     return q, e_band, bt
 
 
-def _synth_chunk(q, e_band, bt, fs: int, window: str, pcm16: bool):
+def synth_frames(q, e_band, bt, fs: int, window: str):
     """[R, s, 1024] q + [R, s, NB] exponents + [R, s] types (device) ->
-    (pcm [R, s*HOP], first [R, HOP] f32, tail [R, HOP] f32)."""
+    (first [R, s, HOP], second [R, s, HOP]) f32: each frame's synthesis,
+    split into the halves that overlap the previous and the next frame."""
     r, f = bt.shape
     btf = bt.reshape(-1).to(torch.int32)
     tb = entropy.dev_tables(fs, str(q.device))
@@ -47,11 +48,23 @@ def _synth_chunk(q, e_band, bt, fs: int, window: str, pcm16: bool):
     e_bin = torch.gather(ef, 1, tb["bin_band"][btf.long()].long())
     xhat = quantize.dequantize(q.reshape(r * f, -1).to(torch.int32), e_bin)
     frames = dsp.synthesize(xhat, btf, window).reshape(r, f, C.LONG_SIZE)
-    first = frames[:, :, :C.HOP]
-    second = frames[:, :, C.HOP:]
-    prev = torch.cat([torch.zeros_like(second[:, :1]), second[:, :-1]], dim=1)
-    hops = first + prev
-    pcm = hops.reshape(r, f * C.HOP)
+    return frames[:, :, :C.HOP], frames[:, :, C.HOP:]
+
+
+def overlap_add(first, second, prev):
+    """Each hop = its frame's first half + the previous frame's second
+    half (one f32 add); `prev` [R, HOP] is the second half before frame 0
+    (zeros at a clip's start) -> pcm [R, s*HOP] f32."""
+    r, f, _ = first.shape
+    prev = torch.cat([prev[:, None], second[:, :-1]], dim=1)
+    return (first + prev).reshape(r, f * C.HOP)
+
+
+def _synth_chunk(q, e_band, bt, fs: int, window: str, pcm16: bool):
+    """[R, s, 1024] q + [R, s, NB] exponents + [R, s] types (device) ->
+    (pcm [R, s*HOP], first [R, HOP] f32, tail [R, HOP] f32)."""
+    first, second = synth_frames(q, e_band, bt, fs, window)
+    pcm = overlap_add(first, second, torch.zeros_like(second[:, 0]))
     if pcm16:
         pcm = torch.clamp(torch.round(pcm * 32767.0), -32768, 32767).to(
             torch.int16)

@@ -12,6 +12,7 @@ import functools
 import os
 import subprocess
 import sys
+import threading
 
 import numpy as np
 
@@ -29,8 +30,9 @@ def _build() -> str:
         return _SO
     os.makedirs(_BUILD, exist_ok=True)
     # private temp path + os.replace: several processes (pytest-xdist
-    # workers) may race to build, and none may load a half-written .so
-    tmp = f"{_SO}.tmp.{os.getpid()}"
+    # workers) or threads may race to build, and none may load a
+    # half-written .so
+    tmp = f"{_SO}.tmp.{os.getpid()}.{threading.get_ident()}"
     res = subprocess.run(
         ["g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-pthread",
          _SRC, "-o", tmp],

@@ -24,6 +24,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -74,7 +75,7 @@ def build(names=SOURCES, force: bool = False) -> dict[str, str]:
         if (not force and os.path.exists(so)
                 and os.path.getmtime(so) >= os.path.getmtime(src)):
             continue
-        tmp = f"{so}.tmp.{os.getpid()}"
+        tmp = f"{so}.tmp.{os.getpid()}.{threading.get_ident()}"
         procs[name] = (subprocess.Popen(
             [nvcc(), *flags, src, "-o", tmp],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),

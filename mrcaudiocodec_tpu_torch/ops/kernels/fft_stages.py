@@ -80,10 +80,11 @@ def fft_kernel(re, im):
     out_i = torch.empty_like(im)
     if re.numel() == 0:
         return out_r, out_i
-    rc = _fn()(re.data_ptr(), im.data_ptr(),
-               _twiddles(n, str(re.device)).data_ptr(),
-               out_r.data_ptr(), out_i.data_ptr(), re.numel() // n, n,
-               torch.cuda.current_stream(re.device).cuda_stream)
+    tw = _twiddles(n, str(re.device))
+    with torch.cuda.device(re.device):     # the tensors' card is current
+        rc = _fn()(re.data_ptr(), im.data_ptr(), tw.data_ptr(),
+                   out_r.data_ptr(), out_i.data_ptr(), re.numel() // n, n,
+                   torch.cuda.current_stream(re.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fft_stages launch failed: cudaError {rc}")
     launches += 1

@@ -130,12 +130,13 @@ def payload_bits_kernel(x, amp_bin, gains, bt, fs: int):
     dev = str(x.device)
     tb = entropy.dev_tables(fs, dev)
     em, sf = _pair_tables(dev)
-    rc = _fn()(x.data_ptr(), amp_bin.data_ptr(), gains.data_ptr(),
-               bt.data_ptr(), _band_tuples(fs, dev).data_ptr(),
-               tb["len_small"].data_ptr(), em.data_ptr(), sf.data_ptr(),
-               _consts(dev).data_ptr(),
-               out.data_ptr(), nf, g, tb["nb"],
-               torch.cuda.current_stream(x.device).cuda_stream)
+    bands, consts = _band_tuples(fs, dev), _consts(dev)
+    with torch.cuda.device(x.device):      # the tensors' card is current
+        rc = _fn()(x.data_ptr(), amp_bin.data_ptr(), gains.data_ptr(),
+                   bt.data_ptr(), bands.data_ptr(),
+                   tb["len_small"].data_ptr(), em.data_ptr(), sf.data_ptr(),
+                   consts.data_ptr(), out.data_ptr(), nf, g, tb["nb"],
+                   torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"quant_cost launch failed: code {rc}")
     launches += 1

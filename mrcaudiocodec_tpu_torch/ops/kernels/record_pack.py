@@ -165,11 +165,15 @@ def pack_stream_kernel(q, amp, gain, bt, cb, order, fs: int, cap: int):
     scratch = torch.empty((-(-n // warps) + 1,), dtype=torch.int64,
                           device=dev)
     codes, bands, real = _dev_tables(fs, str(dev))
-    rc = _fn()(q.data_ptr(), amp.data_ptr(), gain.data_ptr(), bt.data_ptr(),
-               cb.data_ptr(), order.data_ptr(), codes.data_ptr(),
-               bands.data_ptr(), real.data_ptr(), body.data_ptr(),
-               nbytes.data_ptr(), status.data_ptr(), scratch.data_ptr(), n,
-               nb, cap, warps, torch.cuda.current_stream(dev).cuda_stream)
+    # the tensors' card is current: the C entry's cached occupancy query
+    # keys on cudaGetDevice
+    with torch.cuda.device(dev):
+        rc = _fn()(q.data_ptr(), amp.data_ptr(), gain.data_ptr(),
+                   bt.data_ptr(), cb.data_ptr(), order.data_ptr(),
+                   codes.data_ptr(), bands.data_ptr(), real.data_ptr(),
+                   body.data_ptr(), nbytes.data_ptr(), status.data_ptr(),
+                   scratch.data_ptr(), n, nb, cap, warps,
+                   torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"record_pack launch failed: code {rc}")
     launches += 1

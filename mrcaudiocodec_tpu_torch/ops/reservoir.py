@@ -52,12 +52,32 @@ def quantize_pe(pe):
     return torch.floor(torch.clamp(pe.to(torch.float32), 0.0, 65535.0)).to(I64)
 
 
+def mean_pe_from_sum(total, nf):
+    """max(1, floor(total / nf)), exact in int64: a row's mean PE from its
+    (reduced) sum of pe_q and its frame count nf."""
+    return torch.clamp(torch.div(total, nf, rounding_mode="floor"), min=1)
+
+
 def mean_pe_exact(pe_q, nf=None):
     """max(1, floor(sum(pe_q) / nf)) along the last axis, exact in int64;
     nf is the axis length, or a [...] tensor of each row's frame count."""
     nf = pe_q.shape[-1] if nf is None else nf
-    return torch.clamp(torch.div(pe_q.sum(-1), nf, rounding_mode="floor"),
-                       min=1)
+    return mean_pe_from_sum(pe_q.sum(-1), nf)
+
+
+def masked_pe(pe, nf_row=None, f0: int = 0):
+    """[..., F] float32 PE of frames f0 .. f0+F-1 -> int64 pe_q with the
+    frames at or past each row's true frame count nf_row ([...] ints; None:
+    every frame counts) set to 0. Summed over the last axis this is a
+    row's partial PE sum: the frame's global index decides, so a shard of
+    the frame axis masks exactly the frames the whole row masks
+    (mrcaudiocodec_tpu/parallel/sharded.py:113-114)."""
+    pe_q = quantize_pe(pe)
+    if nf_row is None:
+        return pe_q
+    nf_row = torch.as_tensor(nf_row, dtype=I64, device=pe.device)
+    frame = f0 + torch.arange(pe.shape[-1], device=pe.device)
+    return torch.where(frame < nf_row[..., None], pe_q, 0)
 
 
 def desired_bits(pe_q, mean_bits: int, mean_pe):
@@ -68,15 +88,61 @@ def desired_bits(pe_q, mean_bits: int, mean_pe):
     return torch.clamp(d, lo, hi)
 
 
+INF = 1 << 40                       # the identity map's clamp bounds
+
+
+def identity_maps(shape, device):
+    """The identity clamped-add map (0, -INF, +INF), broadcast to shape."""
+    return (torch.zeros(shape, dtype=I64, device=device),
+            torch.full(shape, -INF, dtype=I64, device=device),
+            torch.full(shape, INF, dtype=I64, device=device))
+
+
+def apply_maps(maps, r):
+    """Apply clamped-add maps (a, lo, hi) to reservoir levels r."""
+    a, lo, hi = maps
+    return torch.minimum(hi, torch.maximum(lo, r + a))
+
+
+def local_maps(desired, mean_bits: int, cap: int):
+    """[..., F] desired -> the inclusive scan of the frames' maps
+    r -> clip(r + mean - desired, 0, cap): element f is the map from the
+    level before frame 0 to the level after frame f. Its last column is
+    the whole run's map (a shard's total)."""
+    a = mean_bits - desired
+    return scan_maps(a, torch.zeros_like(a), torch.full_like(a, cap))
+
+
+def carry_in(totals, index: int):
+    """[S, ...] x3 shard totals (a, lo, hi), in frame order -> [...] the
+    reservoir level entering shard `index`: the maps of shards 0 ..
+    index-1 composed in order, applied to 0
+    (mrcaudiocodec_tpu/parallel/sharded.py:126-144)."""
+    carry = identity_maps(totals[0].shape[1:], totals[0].device)
+    for s in range(index):
+        carry = _compose(carry, tuple(t[s] for t in totals))
+    return apply_maps(carry, torch.zeros_like(carry[0]))
+
+
+def budgets_from_prefix(desired, prefix, r_in, mean_bits: int):
+    """[..., F] desired, its local_maps prefix and [...] entering levels
+    r_in -> budgets: budget[f] = min(desired[f], mean + r[f]), r[f] the
+    local exclusive prefix applied to r_in
+    (mrcaudiocodec_tpu/parallel/sharded.py:145-153)."""
+    ident = identity_maps(desired.shape[:-1] + (1,), desired.device)
+    excl = tuple(torch.cat([i, p[..., :-1]], -1)
+                 for i, p in zip(ident, prefix))
+    r_in = torch.as_tensor(r_in, device=desired.device)
+    r = apply_maps(excl, r_in[..., None])
+    return torch.minimum(desired, mean_bits + r)
+
+
 def budgets_scan(desired, mean_bits: int, cap: int):
     """[..., F] desired -> [..., F] budgets:
     budget[f] = min(desired[f], mean + r[f]) with
     r[f+1] = clip(r[f] + mean - desired[f], 0, cap), r[0] = 0."""
-    a = mean_bits - desired
-    a, lo, hi = scan_maps(a, torch.zeros_like(a), torch.full_like(a, cap))
-    r_incl = torch.minimum(hi, torch.maximum(lo, a))     # maps applied to 0
-    r = torch.cat([torch.zeros_like(r_incl[..., :1]), r_incl[..., :-1]], -1)
-    return torch.minimum(desired, mean_bits + r)
+    return budgets_from_prefix(desired, local_maps(desired, mean_bits, cap),
+                               0, mean_bits)
 
 
 def allocate(pe, cfg, nf_row=None):
@@ -87,17 +153,15 @@ def allocate(pe, cfg, nf_row=None):
     pe_q = 0 and the mean PE divides by nf_row, so every real frame's
     budget equals that of the row encoded alone (pad frames come after the
     real ones and cannot reach them through the scan). Mirrors
-    mrcaudiocodec_tpu/parallel/sharded.py's per-row mean."""
+    mrcaudiocodec_tpu/parallel/sharded.py's per-row mean; parallel/
+    sharded.py runs the same pieces with the sum and the carry taken
+    across shards of the frame axis."""
     mean_bits = int(cfg.mean_frame_bits)
     if not cfg.reservoir:
         return torch.full(pe.shape, mean_bits, dtype=I64, device=pe.device)
-    pe_q = quantize_pe(pe)
-    if nf_row is None:
-        mean_pe = mean_pe_exact(pe_q)
-    else:
-        nf_row = torch.as_tensor(nf_row, dtype=I64, device=pe.device)
-        frame = torch.arange(pe.shape[-1], device=pe.device)
-        pe_q = torch.where(frame < nf_row[..., None], pe_q, 0)
-        mean_pe = mean_pe_exact(pe_q, nf_row)
+    pe_q = masked_pe(pe, nf_row)
+    nf = pe.shape[-1] if nf_row is None else torch.as_tensor(
+        nf_row, dtype=I64, device=pe.device)
+    mean_pe = mean_pe_from_sum(pe_q.sum(-1), nf)
     desired = desired_bits(pe_q, mean_bits, mean_pe)
     return budgets_scan(desired, mean_bits, cfg.reservoir_cap)

@@ -132,13 +132,37 @@ def test_default_device_is_cuda():
         codec.decode(bs)
 
 
+IMPORT_EVERYTHING = """
+import ast, importlib, pkgutil, sys
+import mrcaudiocodec_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                               pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+for node in ast.walk(ast.parse(open("chip_smoke.py").read())):
+    if isinstance(node, ast.Import):
+        for a in node.names:
+            importlib.import_module(a.name)
+    elif isinstance(node, ast.ImportFrom) and node.level == 0:
+        importlib.import_module(node.module)
+        for a in node.names:           # a submodule, or a name in it
+            try:
+                importlib.import_module(node.module + "." + a.name)
+            except ModuleNotFoundError:
+                getattr(sys.modules[node.module], a.name)
+import chip_smoke
+assert "mrcaudiocodec_tpu_torch.parallel.launch" in names, names
+bad = [m for m in sys.modules if m == "jax" or m.startswith(
+    ("jax.", "mrcaudiocodec_tpu.")) or m == "mrcaudiocodec_tpu"]
+assert not bad, bad
+"""
+
+
 def test_port_imports_no_jax():
-    code = ("import sys, mrcaudiocodec_tpu_torch.models.codec; "
-            "bad = [m for m in sys.modules if m == 'jax' or "
-            "m.startswith(('jax.', 'mrcaudiocodec_tpu.')) or "
-            "m == 'mrcaudiocodec_tpu']; assert not bad, bad")
-    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
-                   timeout=120)
+    """Every module of the port (a walk of the package) and every module
+    chip_smoke.py imports load no JAX and nothing of the JAX package."""
+    subprocess.run([sys.executable, "-c", IMPORT_EVERYTHING], cwd=REPO,
+                   check=True, timeout=120)
 
 
 def test_chip_smoke_refuses_without_card_or_repo(tmp_path):

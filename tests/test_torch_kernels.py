@@ -489,3 +489,74 @@ def test_encode_launches_record_pack_on_card(monkeypatch, row_frames):
     assert bs == codec.encode(x, cfg, device="cpu")
     dec, nf = encoder.encode_arrays(x, cfg, device="cuda")
     assert bs == packing.pack_stream(dec, nf, x.shape[0], cfg)
+
+
+def _wrapper_inputs(name, device):
+    """(dispatcher, kernel wrapper, plain version, args) of K1, K2 or K3 on
+    small random inputs on `device`."""
+    rng = np.random.default_rng(7)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    if name == "fft_stages":
+        z = rng.standard_normal((2, 512)).astype(np.float32)
+        return (fft_stages.fft, fft_stages.fft_kernel, fft_stages.fft_plain,
+                (t(z), t(-z)))
+    if name == "quant_cost":
+        x = rng.standard_normal((3, 1024)).astype(np.float32)
+        return (quant_cost.payload_bits, quant_cost.payload_bits_kernel,
+                quant_cost.payload_bits_plain,
+                (t(x), t(np.zeros((3, 1024), np.int32)),
+                 t(np.full((3, 4), 60, np.int32)),
+                 t(np.arange(3, dtype=np.int32)), 44100))
+    d = _decisions_for(5, 44100, 7)
+    return (device_pack.pack_stream, record_pack.pack_stream_kernel,
+            device_pack.pack_stream_plain,
+            (*[t(v) for v in d], t(np.arange(5, dtype=np.int32)), 44100,
+             4096))
+
+
+@pytest.mark.parametrize("name", ["fft_stages", "quant_cost",
+                                  "record_pack"])
+def test_wrappers_launch_only_for_cuda_tensors(name, monkeypatch):
+    """For CPU tensors the dispatcher takes the plain version and the
+    kernel wrapper raises before its launch path (making the tensors'
+    card current, the C entry, the launch count)."""
+    mod = {"fft_stages": fft_stages, "quant_cost": quant_cost,
+           "record_pack": record_pack}[name]
+
+    def reached(*a, **k):
+        raise AssertionError("the launch path was reached")
+    monkeypatch.setattr(torch.cuda, "device", reached)
+    monkeypatch.setattr(mod, "_fn", reached)
+    dispatch, kernel, plain, args = _wrapper_inputs(name, "cpu")
+    before = mod.launches
+    got, want = dispatch(*args), plain(*args)
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError):
+        kernel(*args)
+    assert mod.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fft_stages", "quant_cost",
+                                  "record_pack"])
+def test_wrappers_launch_on_the_tensors_card(name):
+    """Tensors on cuda:0 while cuda:1 is current: the kernel runs on the
+    tensors' card and equals its plain version (needs two cards)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    dispatch, kernel, plain, args = _wrapper_inputs(name, "cuda:0")
+    with torch.cuda.device(1):
+        got = kernel(*args)
+        torch.cuda.synchronize(0)
+    want = plain(*args)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    if name == "record_pack":
+        total = int(want[2][0])
+        got, want = ((got[0][:total],) + got[1:],
+                     (want[0][:total],) + want[1:])
+    for g, w in zip(got, want):
+        assert g.device.index in (None, 0)
+        assert torch.equal(g.cpu(), w.cpu())
