@@ -75,7 +75,13 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      it, every .mrc == codec.encode) and a GroupShards encode at (1, 2), a
      seq shard in each process (streams == codec.encode; each exchange's
      host-clock ms)
- 13. one JSON line listing the kernels
+ 13. the bench: mrcaudiocodec_tpu_torch.bench.main(["--full", "--kernels"])
+     in this process at its default sizes (the 30 s clip, the spec on
+     4 s), with K1-K3's launch counts around it and their plain versions
+     counted too (none may run); its JSON line has the root bench.py's 11
+     keys, the stream equals the port's spec's, segSNR and PSNR equal the
+     spec's; every value logged beside the card's name and power limit
+ 14. one JSON line listing the kernels
 The last line is {"ok": true, "device": {...}}. Without a CUDA card, or
 without the repository beside it, the script exits non-zero and prints no
 result.
@@ -89,15 +95,6 @@ import sys
 import time
 
 import numpy as np
-
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (data sheet)
-# H100 SXM f32 outside the tensor cores is 67e12 FLOP/s (data sheet), which
-# counts one FMA as two operations. The kernels are built with --fmad=false
-# and every counted op is its own instruction (an add, a multiply, a
-# compare), so they issue at half that: 132 SMs x 128 lanes x ~1.98 GHz.
-F32_OPS_PER_S = 67e12 / 2
-# H100 SXM: 64 INT32 lanes per SM against 128 FP32 (Hopper white paper)
-INT32_OPS_PER_S = F32_OPS_PER_S / 2
 
 # ---------------------------------------------------------------------------
 # Inputs (copies of the repository's test and benchmark clip generators)
@@ -136,38 +133,6 @@ GOLDEN = [
 ]
 
 
-def make_clip(fs: int, seconds: float, channels: int, seed=0):
-    rng = np.random.default_rng(seed)
-    n = int(fs * seconds)
-    t = np.arange(n) / fs
-    x = np.zeros(n, np.float32)
-    for f0, a in [(220, 0.3), (440, 0.2), (1320, 0.12), (3520, 0.07)]:
-        x += (a * np.sin(2 * np.pi * f0 * t + 0.1 * np.sin(2 * np.pi * 0.5 * t))
-              ).astype(np.float32)
-    x += (0.02 * rng.standard_normal(n)).astype(np.float32)
-    for pos in range(fs // 2, n - 300, int(0.7 * fs)):
-        x[pos:pos + 96] += (0.5 * rng.standard_normal(96)).astype(np.float32)
-    x = np.clip(x, -1, 1)
-    if channels == 2:
-        return np.stack([x, np.roll(x, 11) * 0.9], axis=1)
-    return x[:, None]
-
-
-def to_i16(xf):
-    return np.clip(np.round(xf * 32768.0), -32768, 32767).astype(np.int16)
-
-
-def segmental_snr(x, y, seg=1024):
-    n = (len(x) // seg) * seg
-    xs = x[:n].reshape(-1, seg)
-    ys = y[:n].reshape(-1, seg)
-    num = (xs ** 2).mean(axis=1)
-    den = ((xs - ys) ** 2).mean(axis=1)
-    keep = num > 1e-8
-    return float(np.mean(10 * np.log10((num[keep] + 1e-30)
-                                       / (den[keep] + 1e-30))))
-
-
 def log(*a):
     print(*a, flush=True)
 
@@ -195,62 +160,6 @@ def max_abs_err(a, b) -> float:
     return float((a.double().cpu() - b.double().cpu()).abs().max())
 
 
-def device_ms(fn, iters: int = 20, match=None, per_call: int = 1):
-    """Mean device ms per call of fn() from torch.profiler's kernel times:
-    the kernels whose name holds `match`, `per_call` of them a call, or
-    (match None) every kernel fn launched. It is the recorded launches'
-    mean time times the launches a call, and it is kept only from a trace
-    that holds every launch (iters x per_call of them; for match None a
-    multiple of iters): the trace can drop launches. None if three traces
-    in a row miss some."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    seen = []
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            # the trace can miss the first launches of a session: open it
-            # with fills, which no measured function launches, and leave
-            # them out
-            pad = torch.empty(1024, device="cuda")
-            for _ in range(50):
-                pad.fill_(1.0)
-            torch.cuda.synchronize()
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        total, count = 0.0, 0
-        for e in prof.key_averages():
-            t = getattr(e, "self_device_time_total", 0)
-            if t > 0 and "FillFunctor" not in e.key and (
-                    match is None or match in e.key):
-                total += t
-                count += e.count
-        whole = (count > 0 and count % iters == 0 if match is None
-                 else count == iters * per_call)
-        if whole:
-            return total / 1e3 / count * (count // iters if match is None
-                                          else per_call)
-        seen.append(count)
-    log(f"[times] device ms not measured for {match or 'all kernels'}: the "
-        f"traces held {seen} of {iters} x {per_call} launches")
-    return None
-
-
-def kernel_device_totals(prof, names):
-    """{name: (launches, device ms)} summed over the profiled run's
-    kernels whose name holds `name`."""
-    out = {n: (0, 0.0) for n in names}
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", 0)
-        for n in names:
-            if n in e.key and t > 0:
-                c, ms = out[n]
-                out[n] = (c + e.count, ms + t / 1e3)
-    return out
-
-
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     """Mean device time of fn() over `iters` calls (CUDA events)."""
     import torch
@@ -270,6 +179,7 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 def full_clip():
     """The benchmark clip and its config: 30 s stereo 44.1 kHz 128 kbps,
     int16."""
+    from mrcaudiocodec_tpu_torch.bench import make_clip, to_i16
     from mrcaudiocodec_tpu_torch.config import CodecConfig
     return (CodecConfig(fs=44100, channels=2, bitrate=128000),
             to_i16(make_clip(44100, 30.0, 2)))
@@ -285,45 +195,6 @@ def kernel_pair(name):
                            quant_cost.payload_bits_plain),
             "record_pack": (record_pack.pack_stream_kernel,
                             device_pack.pack_stream_plain)}[name]
-
-
-def capture_inputs(run, per_key: int = 1):
-    """Run run() with K1's, K2's and K3's wrappers recording a copy of
-    their arguments -> {key: args} of the first `per_key` calls of each
-    key: K1 ("fft_stages", shape), K2 ("quant_cost", (rows, G)), K3
-    ("record_pack", (records in the stream order,)), in call order; the
-    i-th call (i > 0) of a key is stored under key + (i,)."""
-    import torch
-    from mrcaudiocodec_tpu_torch.ops.kernels import (fft_stages, quant_cost,
-                                                     record_pack)
-    seen, calls = {}, {}
-    hooks = ((fft_stages, "fft_kernel",
-              lambda a: ("fft_stages", tuple(a[0].shape))),
-             (quant_cost, "payload_bits_kernel",
-              lambda a: ("quant_cost", tuple(a[2].shape))),
-             (record_pack, "pack_stream_kernel",
-              lambda a: ("record_pack", (a[5].shape[0],))))
-    saved = []
-    for mod, attr, key_of in hooks:
-        orig = getattr(mod, attr)
-        saved.append((mod, attr, orig))
-
-        def rec(*args, _orig=orig, _key_of=key_of):
-            key = _key_of(args)
-            i = calls[key] = calls.get(key, -1) + 1
-            if i < per_key:
-                seen[key + ((i,) if i else ())] = tuple(
-                    a.clone() if isinstance(a, torch.Tensor) else a
-                    for a in args)
-            return _orig(*args)
-        setattr(mod, attr, rec)
-    try:
-        run()
-        torch.cuda.synchronize()
-    finally:
-        for mod, attr, orig in saved:
-            setattr(mod, attr, orig)
-    return seen
 
 
 def plain_path(run):
@@ -372,6 +243,7 @@ def main_path_inputs(dev):
     from mrcaudiocodec_tpu_torch import config as C
     from mrcaudiocodec_tpu_torch import corpus
     from mrcaudiocodec_tpu_torch.models import codec, encoder
+    from mrcaudiocodec_tpu_torch.profiling import capture_inputs
     cfg, xi = full_clip()
     box = []
     out = {"encode": capture_inputs(
@@ -414,10 +286,8 @@ def main_path_inputs(dev):
 
 def phase_card():
     import torch
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    from mrcaudiocodec_tpu_torch.profiling import card_line
+    smi = card_line()
     cap = torch.cuda.get_device_capability(0)
     log(f"[card] {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; "
         f"torch {torch.__version__} CUDA {torch.version.cuda}; "
@@ -652,6 +522,7 @@ def phase_goldens(dev):
 
 
 def phase_card_vs_cpu(dev):
+    from mrcaudiocodec_tpu_torch.bench import make_clip
     from mrcaudiocodec_tpu_torch.config import CodecConfig
     from mrcaudiocodec_tpu_torch.models import codec, encoder, packing
     cfg = CodecConfig(fs=44100, channels=2, bitrate=128000)
@@ -678,6 +549,7 @@ def phase_card_vs_cpu(dev):
 def phase_full(dev):
     """Main path at full size; returns (launch counts, stats)."""
     import torch
+    from mrcaudiocodec_tpu_torch.bench import segmental_snr
     from mrcaudiocodec_tpu_torch.models import codec
     from mrcaudiocodec_tpu_torch.ops import rd
     from mrcaudiocodec_tpu_torch.ops.kernels import (fft_stages, quant_cost,
@@ -752,6 +624,7 @@ def phase_breakdown(dev):
     from mrcaudiocodec_tpu_torch import config as C
     from mrcaudiocodec_tpu_torch.models import codec, decoder, encoder, packing
     from mrcaudiocodec_tpu_torch.ops import device_pack, reservoir
+    from mrcaudiocodec_tpu_torch.profiling import kernel_device_totals
     cfg, xi = full_clip()
     bs = codec.encode(xi, cfg, device=dev)                    # warm-up
     laps = {}
@@ -868,47 +741,20 @@ def phase_breakdown(dev):
             f"{tot['record_pack_kernel'][1]:.4f} ms device")
 
 
-def kernel_bound(key, args):
-    """-> (bytes, ops, ops per s) of one launch on these inputs: each input
-    read once, each output written once; the ops each kernel must do."""
-    from mrcaudiocodec_tpu_torch import config as C
-    from mrcaudiocodec_tpu_torch import tables as T
-    from mrcaudiocodec_tpu_torch.ops import device_pack
-    if key[0] == "fft_stages":
-        points, n = args[0].numel(), args[0].shape[-1]
-        stages = n.bit_length() - 1
-        # each point read and written once, plus the compact twiddle table
-        return (points * 16 + (n - 1) * 8, points // 2 * stages * 10,
-                F32_OPS_PER_S)
-    if key[0] == "quant_cost":
-        rows, g = args[2].shape
-        return (rows * C.LONG_COEFFS * 8 + rows * (2 * g + 1) * 4,
-                rows * g * C.LONG_COEFFS * 54, F32_OPS_PER_S)
-    # K3: the packed records' q, amp, cb, gain, bt and their order entries
-    # in; the compact body and nbytes out. Integer work these records need:
-    # a shift and an OR per bit-carrying slot
-    order, fs = args[5], args[6]
-    n, nb = order.shape[0], T.unified_layout(fs)["nb"]
-    sel = [t.index_select(0, order.long()) for t in args[:5]]
-    _, lens, content = device_pack.slots(*sel, fs)
-    body = int(((C.FRAME_LEN_BITS + content + 7) >> 3).sum())
-    return (n * (2 * C.LONG_COEFFS + 2 * nb + 2 + 1 + 4) + body + n * 4,
-            2 * int((lens > 0).sum()), INT32_OPS_PER_S)
-
-
 def time_input(where, key, args):
     """Event ms, device ms, plain ms and the bound of one kernel input (and
     torch.fft.fft's times beside K1)."""
     import torch
+    from mrcaudiocodec_tpu_torch.profiling import (bound_ms, device_ms,
+                                                   kernel_bound)
     kernel, plain = kernel_pair(key[0])
     r = {"ms": cuda_ms(lambda: kernel(*args), 50),
          "device_ms": device_ms(lambda: kernel(*args),
                                 match=f"{key[0]}_kernel"),
          "plain_ms": cuda_ms(lambda: plain(*args), 3, warmup=1)}
     b, o, rate = kernel_bound(key, args)
-    t_b, t_o = b / HBM_BYTES_PER_S * 1e3, o / rate * 1e3
-    r.update(bound_ms=max(t_b, t_o), bytes=b, ops=o,
-             bound_by="bytes" if t_b >= t_o else "operations")
+    t, by = bound_ms([(b, o, rate)])
+    r.update(bound_ms=t, bytes=b, ops=o, bound_by=by)
     lib = ""
     if key[0] == "fft_stages":
         zc = torch.complex(args[0], args[1])
@@ -933,6 +779,7 @@ def phase_times(dev, inputs):
     too and kept under by_shape. Event ms hold the host's launch interval
     where a kernel is short (and K3's read of its status); device ms (the
     profiler's kernel time per launch) do not."""
+    from mrcaudiocodec_tpu_torch.profiling import F32_OPS_PER_S, bound_ms
     out = {}
     for name in ("fft_stages", "quant_cost", "record_pack"):
         by_shape = {}
@@ -945,8 +792,8 @@ def phase_times(dev, inputs):
         if name == "fft_stages":
             # one encode's four launches, summed; its bound from their
             # summed bytes and ops
-            t_b = sum(v["bytes"] for v in enc.values()) / HBM_BYTES_PER_S
-            t_o = sum(v["ops"] for v in enc.values()) / F32_OPS_PER_S
+            t_bound, by = bound_ms([(v["bytes"], v["ops"], F32_OPS_PER_S)
+                                    for v in enc.values()])
             dev_ms = [v["device_ms"] for v in enc.values()]
             lib_dev = [v["library_device_ms"] for v in enc.values()]
             line = dict(
@@ -955,8 +802,7 @@ def phase_times(dev, inputs):
                 plain_ms=sum(v["plain_ms"] for v in enc.values()),
                 library_ms=sum(v["library_ms"] for v in enc.values()),
                 library_device_ms=None if None in lib_dev else sum(lib_dev),
-                bound_ms=max(t_b, t_o) * 1e3,
-                bound_by="bytes" if t_b >= t_o else "operations")
+                bound_ms=t_bound, bound_by=by)
             log(f"[times] fft_stages, the encode's {len(enc)} layouts "
                 f"summed: kernel {line['device_ms']} ms device, "
                 f"torch.fft.fft {line['library_device_ms']} ms device, "
@@ -1084,13 +930,13 @@ def probe_bound(body, args, out):
     """Least time (ms) and what bounds it: each tensor read and written
     once over HBM, or the ops over the f32 and int32 instruction rates."""
     import torch
+    from mrcaudiocodec_tpu_torch.profiling import (F32_OPS_PER_S,
+                                                   INT32_OPS_PER_S, bound_ms)
     outs = out if isinstance(out, tuple) else (out,)
     b = sum(t.numel() * t.element_size() for t in args + outs
             if isinstance(t, torch.Tensor))
     f, i = probe_ops(body, args)
-    t_b = b / HBM_BYTES_PER_S * 1e3
-    t_o = (f / F32_OPS_PER_S + i / INT32_OPS_PER_S) * 1e3
-    return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+    return bound_ms([(b, f, F32_OPS_PER_S), (0, i, INT32_OPS_PER_S)])
 
 
 def probe_compare(body, got, want):
@@ -1108,6 +954,7 @@ def probe_compare(body, got, want):
 def probe_device_ms(timed, iters: int = 20):
     """{body: mean device ms per launch} of each (body, kernel, args) from
     torch.profiler's kernel times (None where it recorded none)."""
+    from mrcaudiocodec_tpu_torch.profiling import device_ms
     out = {body: device_ms(lambda: kernel(*args), iters,
                            match=f"{body}_kernel")
            for body, kernel, args in timed}
@@ -1239,6 +1086,7 @@ def phase_corpus(dev):
     from mrcaudiocodec_tpu_torch.models import codec
     from mrcaudiocodec_tpu_torch.ops.kernels import (fft_stages, quant_cost,
                                                      record_pack)
+    from mrcaudiocodec_tpu_torch.profiling import kernel_device_totals
     n_clips, seconds = 64, 10.0
     cfg = CodecConfig(fs=44100, channels=2, bitrate=128000)
     clips = corpus._synth_corpus(n_clips, seconds)
@@ -1313,6 +1161,7 @@ def phase_cli(dev):
     import os
     import tempfile
     from mrcaudiocodec_tpu_torch import audiofile
+    from mrcaudiocodec_tpu_torch.bench import make_clip
     from mrcaudiocodec_tpu_torch.config import CodecConfig
     from mrcaudiocodec_tpu_torch.models import codec
     root = os.path.dirname(os.path.abspath(__file__))
@@ -1350,6 +1199,7 @@ def phase_cli(dev):
 def parallel_clips():
     """The clips of the two-process GroupShards encode: the benchmark clip
     and a 7.3 s stereo int16 clip (one dtype, mixed lengths)."""
+    from mrcaudiocodec_tpu_torch.bench import make_clip, to_i16
     cfg, xi = full_clip()
     return cfg, [xi, to_i16(make_clip(44100, 7.3, 2, seed=9))]
 
@@ -1416,7 +1266,9 @@ def phase_parallel(dev, corpus_streams, err):
     from mrcaudiocodec_tpu_torch.models import codec
     from mrcaudiocodec_tpu_torch.ops.kernels import (fft_stages, quant_cost,
                                                      record_pack)
+    from mrcaudiocodec_tpu_torch.bench import make_clip
     from mrcaudiocodec_tpu_torch.parallel import launch, mesh, sharded
+    from mrcaudiocodec_tpu_torch.profiling import capture_inputs
     t_phase = time.perf_counter()
     root = os.path.dirname(os.path.abspath(__file__))
     kernels = (fft_stages, quant_cost, record_pack)
@@ -1671,6 +1523,67 @@ def phase_parallel(dev, corpus_streams, err):
     return stats
 
 
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "seg_snr_db",
+              "seg_snr_spec_db", "seg_snr_vs_spec_db", "psnr_db",
+              "psnr_spec_db", "device_resident_rtf", "stream_matches_spec"}
+
+
+def phase_bench(smi):
+    """The port's bench on the card (phase 13 of the module docstring);
+    its stderr is logged here line by line. -> (launches, JSON result)."""
+    import contextlib
+    import io
+    import torch
+    from mrcaudiocodec_tpu_torch import bench
+    from mrcaudiocodec_tpu_torch.ops import device_pack
+    from mrcaudiocodec_tpu_torch.ops.kernels import (fft_stages, quant_cost,
+                                                     record_pack)
+    kernels = (fft_stages, quant_cost, record_pack)
+    plains = ((fft_stages, "fft_plain"), (quant_cost, "payload_bits_plain"),
+              (device_pack, "pack_stream_plain"))
+    plain_calls = {attr: 0 for _, attr in plains}
+    saved = [getattr(mod, attr) for mod, attr in plains]
+    for (mod, attr), orig in zip(plains, saved):
+        def counted(*a, _orig=orig, _attr=attr):
+            plain_calls[_attr] += 1
+            return _orig(*a)
+        setattr(mod, attr, counted)
+    out, err = io.StringIO(), io.StringIO()
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = bench.main(["--full", "--kernels"])
+            torch.cuda.synchronize()
+    finally:
+        for (mod, attr), orig in zip(plains, saved):
+            setattr(mod, attr, orig)
+        for line in err.getvalue().splitlines():
+            log(f"[bench] {line}")
+    dt = time.perf_counter() - t0
+    launches = {k.__name__.rsplit(".", 1)[-1]: k.launches for k in kernels}
+    lines = out.getvalue().strip().splitlines()
+    log(f"[bench] bench.main(['--full', '--kernels']): exit {rc} in "
+        f"{dt:.1f} s; K1-K3 launches {launches}; plain versions called "
+        f"{plain_calls}; stdout {lines}")
+    check(rc == 0 and len(lines) == 1, "the bench did not print one line")
+    res = json.loads(lines[0])
+    log(f"[bench] {smi}: " + "; ".join(f"{k} {v}" for k, v in res.items()))
+    check(set(res) == BENCH_KEYS, f"bench keys {sorted(res)}")
+    check(res["stream_matches_spec"] is True,
+          "the bench's stream differs from the spec's")
+    check(res["seg_snr_vs_spec_db"] == 0.0
+          and res["psnr_db"] == res["psnr_spec_db"],
+          "the bench's quality differs from the spec's")
+    for name, n in launches.items():
+        check(n > 0, f"the bench launched no {name}")
+    check(not any(plain_calls.values()),
+          f"a plain version ran on the bench's path: {plain_calls}")
+    return launches, res
+
+
 def main() -> int:
     try:
         import torch
@@ -1703,6 +1616,8 @@ def main() -> int:
     phase_cli(dev)
     parallel_stats = phase_parallel(dev, corpus_streams, errs)
     del corpus_streams
+    torch.cuda.empty_cache()
+    _, bench_res = phase_bench(smi)
     meta = {
         "fft_stages": ("cuda", "mrcaudiocodec_tpu_torch/csrc/fft_stages.cu",
                        "mrcaudiocodec_tpu/ops/pallas/xmath_kernel.py:93"),
@@ -1726,7 +1641,8 @@ def main() -> int:
                         **probe_stats[body]})
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s; "
         f"stats {json.dumps(stats)}; corpus {json.dumps(corpus_stats)}; "
-        f"parallel {json.dumps(parallel_stats)}")
+        f"parallel {json.dumps(parallel_stats)}; bench "
+        f"{json.dumps(bench_res)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

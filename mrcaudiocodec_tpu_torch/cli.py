@@ -1,16 +1,20 @@
 """Command-line entry points of the PyTorch port.
 
     python -m mrcaudiocodec_tpu_torch.cli encode in.wav out.mrc --bitrate 128 \\
-        [--device cuda|cpu] [--window sine|kbd] [--no-window-switching] \\
-        [--no-psycho] [--no-reservoir]
-    python -m mrcaudiocodec_tpu_torch.cli decode in.mrc out.wav [--device cuda|cpu]
+        [--engine torch|spec] [--device cuda|cpu] [--window sine|kbd] \\
+        [--no-window-switching] [--no-psycho] [--no-reservoir]
+    python -m mrcaudiocodec_tpu_torch.cli decode in.mrc out.wav \\
+        [--engine torch|spec] [--device cuda|cpu]
     python -m mrcaudiocodec_tpu_torch.cli info in.mrc
 
 The options and messages are those of mrcaudiocodec_tpu/cli.py, with
-`--device` in place of `--engine`. Encode and decode run on the card
-(`--device cuda`, the default) unless `--device cpu` is given; without a
-card, `--device cuda` exits non-zero and nothing falls back to the CPU.
-Streams are byte-identical to the spec codec's on either device.
+`--engine torch` (the default: the PyTorch codec) in place of its
+`--engine tpu`, and `--device`. `--engine spec` runs the port's normative
+NumPy codec (`spec.codec`) and takes no device. The torch engine runs on
+the card (`--device cuda`, the default) unless `--device cpu` is given;
+without a card, `--device cuda` exits non-zero, and nothing falls back to
+the CPU or to the spec. Streams are byte-identical across engines and
+devices.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import time
 from . import audiofile, bitstream
 from .config import CodecConfig
 from .models import codec, encoder
+from .spec import codec as spec_codec
 
 
 def _build_cfg(args, fs: int, channels: int) -> CodecConfig:
@@ -45,17 +50,20 @@ def _device(name: str):
 
 
 def cmd_encode(args) -> int:
-    dev = _device(args.device)
-    x, fs = audiofile.read_wav(args.infile, raw_int16=True)
+    spec = args.engine == "spec"
+    dev = None if spec else _device(args.device)
+    name = "spec" if spec else dev.type
+    x, fs = audiofile.read_wav(args.infile, raw_int16=not spec)
     cfg = _build_cfg(args, fs, x.shape[1])
     t0 = time.perf_counter()
-    data = codec.encode(x, cfg, device=dev)
+    data = (spec_codec.encode(x, cfg) if spec
+            else codec.encode(x, cfg, device=dev))
     dt = time.perf_counter() - t0
     with open(args.outfile, "wb") as f:
         f.write(data)
     dur = x.shape[0] / fs
     kbps = len(data) * 8 / dur / 1000
-    print(f"[{dev.type}] encoded {dur:.2f}s {cfg.channels}ch @{fs}Hz -> "
+    print(f"[{name}] encoded {dur:.2f}s {cfg.channels}ch @{fs}Hz -> "
           f"{len(data)} bytes ({kbps:.1f} kbps) in {dt:.2f}s "
           f"({dur / dt:.2f}x realtime)")
     return 0
@@ -64,13 +72,16 @@ def cmd_encode(args) -> int:
 def cmd_decode(args) -> int:
     with open(args.infile, "rb") as f:
         data = f.read()
-    dev = _device(args.device)
+    spec = args.engine == "spec"
+    dev = None if spec else _device(args.device)
+    name = "spec" if spec else dev.type
     t0 = time.perf_counter()
-    x, cfg = codec.decode(data, device=dev, pcm_dtype="int16")
+    x, cfg = (spec_codec.decode(data) if spec
+              else codec.decode(data, device=dev, pcm_dtype="int16"))
     dt = time.perf_counter() - t0
     audiofile.write_wav(args.outfile, x, cfg.fs)
     dur = x.shape[0] / cfg.fs
-    print(f"[{dev.type}] decoded {dur:.2f}s {cfg.channels}ch @{cfg.fs}Hz "
+    print(f"[{name}] decoded {dur:.2f}s {cfg.channels}ch @{cfg.fs}Hz "
           f"in {dt:.2f}s ({dur / dt:.2f}x realtime)")
     return 0
 
@@ -101,7 +112,9 @@ def main(argv=None) -> int:
     pe.add_argument("outfile")
     pe.add_argument("--bitrate", type=int, default=128,
                     help="target bitrate in kbps (total)")
-    pe.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    pe.add_argument("--engine", choices=["torch", "spec"], default="torch")
+    pe.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                    help="where the torch engine runs")
     pe.add_argument("--window", choices=["sine", "kbd"], default="sine")
     pe.add_argument("--no-window-switching", action="store_true")
     pe.add_argument("--no-psycho", action="store_true")
@@ -111,7 +124,9 @@ def main(argv=None) -> int:
     pd = sub.add_parser("decode", help="decode MRC1 -> WAV")
     pd.add_argument("infile")
     pd.add_argument("outfile")
-    pd.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    pd.add_argument("--engine", choices=["torch", "spec"], default="torch")
+    pd.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                    help="where the torch engine runs")
     pd.set_defaults(fn=cmd_decode)
 
     pi = sub.add_parser("info", help="print MRC1 stream info")

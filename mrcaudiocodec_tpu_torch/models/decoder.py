@@ -71,6 +71,21 @@ def _synth_chunk(q, e_band, bt, fs: int, window: str, pcm16: bool):
     return pcm, first[:, 0], second[:, -1]
 
 
+def record_slabs(data: bytes):
+    """Parse every record (parse_records) -> the host slabs of DEC_CHUNK
+    frames that _synth_chunk takes: [(q int16 [nch, s, 1024], e_band
+    int16 [nch, s, NB], bt int8 [nch, s])], contiguous, in frame order."""
+    cfg, nf, _, _ = read_header(data)
+    nch = cfg.channels
+    q, e_band, bt = parse_records(data)
+    # [nf*nch, ...] record order -> [nch, nf, ...], compact dtypes
+    qc = np.swapaxes(q.reshape(nf, nch, -1), 0, 1).astype(np.int16)
+    ec = np.swapaxes(e_band.reshape(nf, nch, -1), 0, 1).astype(np.int16)
+    bc = bt.reshape(nf, nch).T.astype(np.int8)
+    return [tuple(np.ascontiguousarray(a[:, f0:f0 + DEC_CHUNK])
+                  for a in (qc, ec, bc)) for f0 in range(0, nf, DEC_CHUNK)]
+
+
 def decode(data: bytes, device="cuda", pcm_dtype="float32"):
     """MRC1 bytes -> (pcm [n, channels] float32 or int16, cfg)."""
     if pcm_dtype not in ("float32", "int16"):
@@ -78,23 +93,10 @@ def decode(data: bytes, device="cuda", pcm_dtype="float32"):
                          f"{pcm_dtype!r}")
     pcm16 = pcm_dtype == "int16"
     dev = device_for(device)
-    cfg, nf, n_samples, _ = read_header(data)
-    nch = cfg.channels
-    q, e_band, bt = parse_records(data)
-    # [nf*nch, ...] record order -> [nch, nf, ...], compact dtypes
-    qc = np.swapaxes(q.reshape(nf, nch, -1), 0, 1).astype(np.int16)
-    ec = np.swapaxes(e_band.reshape(nf, nch, -1), 0, 1).astype(np.int16)
-    bc = bt.reshape(nf, nch).T.astype(np.int8)
-
-    outs = []
-    for f0 in range(0, nf, DEC_CHUNK):
-        sl = slice(f0, min(f0 + DEC_CHUNK, nf))
-        o = _synth_chunk(
-            torch.from_numpy(np.ascontiguousarray(qc[:, sl])).to(dev),
-            torch.from_numpy(np.ascontiguousarray(ec[:, sl])).to(dev),
-            torch.from_numpy(np.ascontiguousarray(bc[:, sl])).to(dev),
-            cfg.fs, cfg.window, pcm16)
-        outs.append(o)
+    cfg, _, n_samples, _ = read_header(data)
+    outs = [_synth_chunk(*(torch.from_numpy(a).to(dev) for a in slab),
+                         cfg.fs, cfg.window, pcm16)
+            for slab in record_slabs(data)]
     pcms = [o[0].cpu().numpy() for o in outs]
     firsts = [o[1].cpu().numpy() for o in outs]
     tails = [o[2].cpu().numpy() for o in outs]

@@ -191,21 +191,38 @@ def clip_slices(body, nbytes, counts) -> list[bytes]:
     return [body[a:b].tobytes() for a, b in zip(at[:-1], at[1:])]
 
 
+def encode_chunks(audio, orders, spans, nf_row, cfg: CodecConfig, cap: int):
+    """The device stages of an encode. audio: each chunk of `spans` on the
+    device (`upload_chunk`), orders: each chunk's stream order on the
+    device (`stream_order`), both iterables read in chunk order -> each
+    chunk's packed (body, nbytes, status), yielded in turn: every chunk
+    analysed, the budgets of each whole row (`reservoir.allocate`), then
+    per chunk the RD loop and codebooks (`decide_chunk`, K2) and the
+    record pack (`pack_chunk`, K3, which reads its 8-byte status)."""
+    chunks = [_analyze_chunk(a, cfg) for a in audio]
+    budgets = reservoir.allocate(torch.cat([ch[3] for ch in chunks], dim=1),
+                                 cfg, nf_row)
+    for ch, (f0, s), order in zip(chunks, spans, orders):
+        yield pack_chunk(decide_chunk(ch, budgets[:, f0:f0 + s], cfg), order,
+                         cfg, cap)
+
+
 def encode_rows(P: np.ndarray, nf_row, cfg: CodecConfig, dev):
     """Padded rows [R, plen] (`_padded_rows` layout; int16 or float32) and
     each row's true frame count (None: all of them) -> each clip's stream
     body (bytes, the header not included), built on `dev`. Clip j holds
-    rows j*nch .. j*nch + nch - 1, nch = cfg.channels."""
+    rows j*nch .. j*nch + nch - 1, nch = cfg.channels. Each chunk is
+    uploaded just before its analysis, and its body downloaded before the
+    next chunk is packed."""
     nch = cfg.channels
-    cap = device_pack.pack_cap_bytes(cfg)
-    spans, chunks, budgets = _analyze_rows(P, nf_row, cfg, dev)
+    spans = chunk_spans(P.shape[1] // C.HOP - 6, P.shape[0])
+    orders = [stream_order(nf_row, nch, f0, s, P.shape[0]) for f0, s in spans]
+    packed = encode_chunks((upload_chunk(P, f0, s, dev) for f0, s in spans),
+                           (torch.from_numpy(o).to(dev) for o, _ in orders),
+                           spans, nf_row, cfg, device_pack.pack_cap_bytes(cfg))
     pieces = [[] for _ in range(P.shape[0] // nch)]
-    for ch, (f0, s) in zip(chunks, spans):
-        order, counts = stream_order(nf_row, nch, f0, s, P.shape[0])
-        packed = pack_chunk(decide_chunk(ch, budgets[:, f0:f0 + s], cfg),
-                            torch.from_numpy(order).to(dev), cfg, cap)
-        for j, piece in enumerate(clip_slices(*download_body(packed),
-                                              counts)):
+    for p, (_, counts) in zip(packed, orders):
+        for j, piece in enumerate(clip_slices(*download_body(p), counts)):
             pieces[j].append(piece)
     return [b"".join(p) for p in pieces]
 

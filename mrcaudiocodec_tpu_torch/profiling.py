@@ -1,0 +1,174 @@
+"""Measurement helpers shared by the bench (`bench.py`) and chip_smoke.py.
+
+    card_line()                    the card's name and power limit
+    device_ms(fn, ...)             profiler device ms per call of fn()
+    kernel_device_totals(prof, names)
+    capture_inputs(run, per_key)   K1/K2/K3 inputs recorded at their wrappers
+    kernel_bound(key, args)        bytes, ops and op rate of one launch
+    bound_ms(parts)                the least time for a set of launches
+
+Bounds are against the H100 SXM's published rates at its 700 W limit; a
+card set below that runs slower, so every time is logged beside
+`card_line()`. Nothing here runs at import; torch and the kernel modules
+are imported by the functions that use them.
+"""
+from __future__ import annotations
+
+import subprocess
+import sys
+
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (data sheet)
+# H100 SXM f32 outside the tensor cores is 67e12 FLOP/s (data sheet), which
+# counts one FMA as two operations. The kernels are built with --fmad=false
+# and every counted op is its own instruction (an add, a multiply, a
+# compare), so they run at half that rate: 132 SMs x 128 lanes x ~1.98 GHz.
+F32_OPS_PER_S = 67e12 / 2
+# H100 SXM: 64 INT32 lanes per SM against 128 FP32 (Hopper white paper)
+INT32_OPS_PER_S = F32_OPS_PER_S / 2
+
+KERNEL_NAMES = ("fft_stages", "quant_cost", "record_pack")
+
+
+def log(*a):
+    print(*a, file=sys.stderr, flush=True)
+
+
+def card_line() -> str:
+    """The first card's name and power limit as `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader` prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def device_ms(fn, iters: int = 20, match=None, per_call: int = 1):
+    """Mean device ms per call of fn() from torch.profiler's kernel times:
+    the kernels whose name holds `match`, `per_call` of them a call, or
+    (match None) every kernel fn launched but fills. It is the recorded
+    launches' mean time times the launches a call, and it is kept only
+    from a trace that holds every launch (iters x per_call of them; for
+    match None a multiple of iters): the trace can drop launches. None if
+    three traces in a row miss some."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            # the trace can miss the first launches of a session: open it
+            # with fills, which no measured function launches, and leave
+            # them out
+            pad = torch.empty(1024, device="cuda")
+            for _ in range(50):
+                pad.fill_(1.0)
+            torch.cuda.synchronize()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total, count = 0.0, 0
+        for e in prof.key_averages():
+            t = getattr(e, "self_device_time_total", 0)
+            if t > 0 and "FillFunctor" not in e.key and (
+                    match is None or match in e.key):
+                total += t
+                count += e.count
+        whole = (count > 0 and count % iters == 0 if match is None
+                 else count == iters * per_call)
+        if whole:
+            return total / 1e3 / count * (count // iters if match is None
+                                          else per_call)
+        seen.append(count)
+    log(f"[times] device ms not measured for {match or 'all kernels'}: the "
+        f"traces held {seen} of {iters} x {per_call} launches")
+    return None
+
+
+def kernel_device_totals(prof, names):
+    """{name: (launches, device ms)} summed over the profiled run's
+    kernels whose name holds `name`."""
+    out = {n: (0, 0.0) for n in names}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", 0)
+        for n in names:
+            if n in e.key and t > 0:
+                c, ms = out[n]
+                out[n] = (c + e.count, ms + t / 1e3)
+    return out
+
+
+def capture_inputs(run, per_key: int = 1):
+    """Run run() with K1's, K2's and K3's wrappers recording a copy of
+    their arguments -> {key: args} of the first `per_key` calls of each
+    key: K1 ("fft_stages", shape), K2 ("quant_cost", (rows, G)), K3
+    ("record_pack", (records in the stream order,)), in call order; the
+    i-th call (i > 0) of a key is stored under key + (i,)."""
+    import torch
+    from .ops.kernels import fft_stages, quant_cost, record_pack
+    seen, calls = {}, {}
+    hooks = ((fft_stages, "fft_kernel",
+              lambda a: ("fft_stages", tuple(a[0].shape))),
+             (quant_cost, "payload_bits_kernel",
+              lambda a: ("quant_cost", tuple(a[2].shape))),
+             (record_pack, "pack_stream_kernel",
+              lambda a: ("record_pack", (a[5].shape[0],))))
+    saved = []
+    for mod, attr, key_of in hooks:
+        orig = getattr(mod, attr)
+        saved.append((mod, attr, orig))
+
+        def rec(*args, _orig=orig, _key_of=key_of):
+            key = _key_of(args)
+            i = calls[key] = calls.get(key, -1) + 1
+            if i < per_key:
+                seen[key + ((i,) if i else ())] = tuple(
+                    a.clone() if isinstance(a, torch.Tensor) else a
+                    for a in args)
+            return _orig(*args)
+        setattr(mod, attr, rec)
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        for mod, attr, orig in saved:
+            setattr(mod, attr, orig)
+    return seen
+
+
+def kernel_bound(key, args):
+    """-> (bytes, ops, ops per s) of one launch on these inputs: each input
+    read once, each output written once; the ops each kernel must do."""
+    from . import config as C
+    from . import tables as T
+    from .ops import device_pack
+    if key[0] == "fft_stages":
+        points, n = args[0].numel(), args[0].shape[-1]
+        stages = n.bit_length() - 1
+        # each point read and written once, plus the compact twiddle table
+        return (points * 16 + (n - 1) * 8, points // 2 * stages * 10,
+                F32_OPS_PER_S)
+    if key[0] == "quant_cost":
+        rows, g = args[2].shape
+        return (rows * C.LONG_COEFFS * 8 + rows * (2 * g + 1) * 4,
+                rows * g * C.LONG_COEFFS * 54, F32_OPS_PER_S)
+    # K3: the packed records' q, amp, cb, gain, bt and their order entries
+    # in; the compact body and nbytes out. Integer work these records need:
+    # a shift and an OR per bit-carrying slot
+    order, fs = args[5], args[6]
+    n, nb = order.shape[0], T.unified_layout(fs)["nb"]
+    sel = [t.index_select(0, order.long()) for t in args[:5]]
+    _, lens, content = device_pack.slots(*sel, fs)
+    body = int(((C.FRAME_LEN_BITS + content + 7) >> 3).sum())
+    return (n * (2 * C.LONG_COEFFS + 2 * nb + 2 + 1 + 4) + body + n * 4,
+            2 * int((lens > 0).sum()), INT32_OPS_PER_S)
+
+
+def bound_ms(parts):
+    """The least time (ms) the card could take for launches with these
+    (bytes, ops, ops per s) -> (ms, "bytes" or "operations"): the larger
+    of all their bytes over the HBM rate and all their ops over their
+    rates."""
+    t_b = sum(b for b, _, _ in parts) / HBM_BYTES_PER_S * 1e3
+    t_o = sum(o / rate for _, o, rate in parts) * 1e3
+    return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")

@@ -71,6 +71,31 @@ def test_decode_and_info_match_jax_cli(wav, tmp_path, capsys):
     assert "MRC1 stream: 44100 Hz, 2 ch, 128 kbps target" in port_info
 
 
+@pytest.mark.parametrize("flags", [[], ["--bitrate", "96", "--window", "kbd",
+                                         "--no-reservoir"]],
+                         ids=["default", "96k_kbd_no_reservoir"])
+def test_engine_spec_encode_matches_jax_cli_spec(wav, tmp_path, capsys,
+                                                 flags):
+    """--engine spec runs the port's NumPy spec (no card needed, whatever
+    --device says): the JAX CLI's --engine spec bytes."""
+    port, spec = str(tmp_path / "p.mrc"), str(tmp_path / "s.mrc")
+    assert cli.main(["encode", wav, port, "--engine", "spec", *flags]) == 0
+    assert capsys.readouterr().out.startswith("[spec] encoded 0.50s 2ch")
+    assert jcli.main(["encode", wav, spec, "--engine", "spec", *flags]) == 0
+    assert _read(port) == _read(spec)
+
+
+def test_engine_spec_decode_matches_jax_cli_spec(wav, tmp_path, capsys):
+    mrc = str(tmp_path / "a.mrc")
+    assert jcli.main(["encode", wav, mrc, "--engine", "spec"]) == 0
+    port_wav, spec_wav = str(tmp_path / "p.wav"), str(tmp_path / "s.wav")
+    capsys.readouterr()
+    assert cli.main(["decode", mrc, port_wav, "--engine", "spec"]) == 0
+    assert capsys.readouterr().out.startswith("[spec] decoded 0.50s 2ch")
+    assert jcli.main(["decode", mrc, spec_wav, "--engine", "spec"]) == 0
+    assert _read(port_wav) == _read(spec_wav)
+
+
 def _exit_code(main, argv):
     try:
         return main(argv)
