@@ -5,7 +5,7 @@
 
 Phases, in order; any failure raises, so the exit code is non-zero:
   1. card: name and power limit (nvidia-smi), CUDA version, capability 9.0
-  2. build: the main path's three CUDA kernels from csrc/ (nvcc, one
+  2. build: the main path's four CUDA kernels from csrc/ (nvcc, one
      process per source started together, -Xptxas -v per kernel)
   3. kernels against their plain PyTorch versions, bitwise:
      K1 fft_stages at all four FFT sizes (card kernel vs plain on the card
@@ -15,14 +15,20 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      QMAX, all three fs) in stream orders that are in turn, shuffled or
      skip records, at 1, 31, 32, 33, a tile +- 1, 8192 and 65536 records,
      20 repeated launches giving the same bytes, and a too-small cap,
-     which must raise; then all three on the main path's own inputs,
+     which must raise; then all four on the main path's own inputs,
      captured at their wrappers: one 30 s stereo encode (one chunk of 2586
      frame rows), its decode, and one 64 x 10 s stereo corpus batch
-     (chunks of 8192 frame rows)
+     (chunks of 8192 frame rows); K4 rd_loop also on RD corner sets the
+     encoder makes on the card (16 kbps stereo 48 kHz, where the GAIN_MAX
+     fallback is reached; 320 kbps; the 30 s chunk with every frame
+     SHORT, with silent budget-0 pad frames, with allowed noise a
+     millionth, so frames run every outer iteration), with how many frames
+     reach each corner, on the CPU too for 256 rows of each, and 20
+     repeated launches giving the same outputs
   4. on those captured inputs, each kernel's time (CUDA events, and the
      profiler's device time per launch) beside its plain version's, one
      PyTorch library call where one exists (torch.fft.fft for K1) and the
-     card's bound; the SASS instruction mix of K1, K2 and K3
+     card's bound; the SASS instruction mix of K1-K4
   5. goldens g1-g6 encoded on the card (records built by K3) against their
      SHA-256 digests; each decoded on the card and on the CPU, PCM bitwise
      equal
@@ -30,15 +36,20 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      stream (decisions downloaded, native packer) == the CPU stream;
      decodes equal
   7. full size: the benchmark clip (30 s stereo 44.1 kHz 128 kbps, int16)
-     encoded and decoded on the card, kernel launch counts of that run,
-     then one warm-up and 5 timed runs of each
+     encoded and decoded on the card, kernel launch counts of that run (K4
+     once and K2 twice a chunk, no RD host sync, no plain RD loop; the
+     plain path's host syncs on the same clip beside them), then one
+     warm-up and 5 timed runs of each
   8. where the time goes: host-clock ms per encode/decode stage (the pack
      stage as the stream order built and uploaded, device pack, download
      of the compact stream body and assemble, beside the host-pack path,
      with the bytes each downloads),
      and the card's busy share
-     with the top kernels (torch.profiler), with K1's, K2's and K3's
-     launches and device ms in one encode and one decode
+     with the top kernels (torch.profiler), with K1-K4's
+     launches and device ms in one encode and one decode; decide_chunk on
+     the clip's chunk with K4, with the loop in its plain version (the
+     parent's path) and with every kernel plain, in turns: wall, device
+     ms, host syncs
   9. the probe path (P1-P5, mrcaudiocodec_tpu_torch/probes/): builds the
      four probe libraries and the --fmad=true control, runs each probe
      module on the card with the launch counts, asserts P3's
@@ -58,13 +69,13 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      and the WAV == codec.decode on the card
  12. the parallel path (parallel/), on the card: acceptance config 3 (5 min
      48 kHz stereo 192 kbps) encoded on the card == its card encode with
-     K1-K3 swapped for their plain versions; (a) sharded encode, every
+     K1-K4 swapped for their plain versions; (a) sharded encode, every
      shard in turn in this process (LocalShards): the 30 s clip at (data,
      seq) = (1, 4), (2, 2), (2, 1) == codec.encode, config 3 at (1, 4) ==
      its unsharded encode, the 64 x 10 s batch at (4, 2) == phase 10's
      streams; (b) sharded decode of the 30 s stream at (1, 4), (2, 2) ==
-     codec.decode float32 bitwise; the K1-K3 launch counts of (a) and of
-     (b); K1-K3 held bitwise to their plain versions on the inputs the
+     codec.decode float32 bitwise; the K1-K4 launch counts of (a) and of
+     (b); K1-K4 held bitwise to their plain versions on the inputs the
      (1, 4) encodes and decode gave them (captured at the wrappers, every
      shard's); walls of (a) at (1, 4) beside the unsharded encode; (c)
      corpus.encode_batch over devices ["cuda:0", "cuda:0"] == the
@@ -77,7 +88,7 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      host-clock ms)
  13. the bench: mrcaudiocodec_tpu_torch.bench.main(["--full", "--kernels"])
      in this process at its default sizes (the 30 s clip, the spec on
-     4 s), with K1-K3's launch counts around it and their plain versions
+     4 s), with K1-K4's launch counts around it and their plain versions
      counted too (none may run); its JSON line has the root bench.py's 11
      keys, the stream equals the port's spec's, segSNR and PSNR equal the
      spec's; every value logged beside the card's name and power limit
@@ -185,32 +196,56 @@ def full_clip():
             to_i16(make_clip(44100, 30.0, 2)))
 
 
+KERNELS = ("fft_stages", "quant_cost", "record_pack", "rd_loop")
+
+
+def rd_loop_plain_all(*args):
+    """K4's plain version with the payloads it needs from K2's plain
+    version too: no kernel in the comparison."""
+    from mrcaudiocodec_tpu_torch.ops import rd
+    return plain_path(lambda: rd.rd_loop_plain(*args), ("quant_cost",))
+
+
 def kernel_pair(name):
-    """(kernel wrapper, plain version) of K1, K2 or K3 by name."""
+    """(kernel wrapper, plain version) of K1, K2, K3 or K4 by name."""
     from mrcaudiocodec_tpu_torch.ops import device_pack
     from mrcaudiocodec_tpu_torch.ops.kernels import (fft_stages, quant_cost,
-                                                     record_pack)
+                                                     rd_loop, record_pack)
     return {"fft_stages": (fft_stages.fft_kernel, fft_stages.fft_plain),
             "quant_cost": (quant_cost.payload_bits_kernel,
                            quant_cost.payload_bits_plain),
             "record_pack": (record_pack.pack_stream_kernel,
-                            device_pack.pack_stream_plain)}[name]
+                            device_pack.pack_stream_plain),
+            "rd_loop": (rd_loop.rd_loop_kernel, rd_loop_plain_all)}[name]
 
 
-def plain_path(run):
-    """run() with K1's, K2's and K3's wrappers replaced by their plain
-    PyTorch versions (on the same card) -> what run() returns."""
+def kernel_modules():
+    """The kernel wrappers' modules, K1-K4 in order."""
     from mrcaudiocodec_tpu_torch.ops.kernels import (fft_stages, quant_cost,
-                                                     record_pack)
-    swaps = ((fft_stages, "fft_kernel"), (quant_cost, "payload_bits_kernel"),
-             (record_pack, "pack_stream_kernel"))
-    saved = [getattr(mod, attr) for mod, attr in swaps]
+                                                     rd_loop, record_pack)
+    return (fft_stages, quant_cost, record_pack, rd_loop)
+
+
+def plain_path(run, names=KERNELS):
+    """run() with the named kernels' wrappers (default K1-K4) replaced by
+    their plain PyTorch versions (on the same card) -> what run()
+    returns. K4's plain version takes its payloads from K2's wrapper, so
+    names=("rd_loop",) is the path before K4: the loop in PyTorch, K2 for
+    every sweep."""
+    from mrcaudiocodec_tpu_torch.ops import rd
+    attrs = {"fft_stages": "fft_kernel", "quant_cost": "payload_bits_kernel",
+             "record_pack": "pack_stream_kernel",
+             "rd_loop": "rd_loop_kernel"}
+    mods = dict(zip(KERNELS, kernel_modules()))
+    swaps = [(mods[n], attrs[n], n) for n in names]
+    saved = [getattr(mod, attr) for mod, attr, _ in swaps]
     try:
-        for mod, attr in swaps:
-            setattr(mod, attr, kernel_pair(mod.__name__.rsplit(".", 1)[-1])[1])
+        for mod, attr, name in swaps:
+            setattr(mod, attr, rd.rd_loop_plain if name == "rd_loop"
+                    else kernel_pair(name)[1])
         return run()
     finally:
-        for (mod, attr), orig in zip(swaps, saved):
+        for (mod, attr, _), orig in zip(swaps, saved):
             setattr(mod, attr, orig)
 
 
@@ -231,15 +266,13 @@ def hold_to_plain(caps, where, err):
 
 
 def main_path_inputs(dev):
-    """The inputs K1, K2 and K3 get on the main path, captured at their
-    wrappers: {"encode": one encode of the 30 s stereo clip (one chunk of
-    1293 frames x 2 rows = 2586 frame rows), "decode": its decode (chunks
-    of 1024 and 269 frames x 2 rows), "corpus": one 64 x 10 s stereo batch
+    """The inputs K1-K4 get on the main path, captured at their wrappers:
+    {"encode": one encode of the 30 s stereo clip (one chunk of 1293
+    frames x 2 rows = 2586 frame rows), "decode": its decode (chunks of
+    1024 and 269 frames x 2 rows), "corpus": one 64 x 10 s stereo batch
     (128 rows x chunks of 64 frames = 8192 frame rows)}, each as
-    capture_inputs gives it. K2 at G=1 runs only when a frame fits no gain
-    of its refine window; where a run did not reach it, its input is that
-    run's G=4 input with the one candidate GAIN_MAX."""
-    import torch
+    capture_inputs gives it. K2 runs the inner sweep (G=32, then G=8) and
+    K4 the loop after it."""
     from mrcaudiocodec_tpu_torch import config as C
     from mrcaudiocodec_tpu_torch import corpus
     from mrcaudiocodec_tpu_torch.models import codec, encoder
@@ -253,16 +286,6 @@ def main_path_inputs(dev):
     out["corpus"] = capture_inputs(
         lambda: corpus.encode_batch(clips, cfg, device=dev))
     for where, caps in out.items():
-        for key in [k for k in caps if k[0] == "quant_cost" and k[1][1] == 4]:
-            rows = key[1][0]
-            if ("quant_cost", (rows, 1)) not in caps:
-                x, amp_bin, gains, bt, fs = caps[key]
-                caps[("quant_cost", (rows, 1))] = (
-                    x, amp_bin, torch.full((rows, 1), C.GAIN_MAX,
-                                           dtype=gains.dtype,
-                                           device=gains.device), bt, fs)
-                log(f"[kernels] {where}: K2 at G=1 not reached; its input "
-                    f"is the G=4 input [{rows}, 4] with gain {C.GAIN_MAX}")
         log(f"[kernels] {where}: kernel inputs captured at "
             f"{[(k[0], k[1]) for k in caps]}")
     # the frame rows of one chunk, from the encoder's own chunking
@@ -274,7 +297,8 @@ def main_path_inputs(dev):
                 2 * len(clips))[0][1]}
     for where, r in rows.items():
         log(f"[kernels] {where}: {r} frame rows a chunk")
-        for key in (("quant_cost", (r, 32)), ("record_pack", (r,))):
+        for key in (("quant_cost", (r, 32)), ("quant_cost", (r, 8)),
+                    ("rd_loop", (r,)), ("record_pack", (r,))):
             check(key in out[where], f"{where}: no kernel input at {key}")
     return out
 
@@ -312,7 +336,8 @@ def phase_build():
         "(1 frame at G >= 4, 4 / G below), set at launch; record_pack: "
         "dynamic shared memory per warp of 128 B plus two staging buffers "
         "of cap rounded up to 4 B, warps per block from the cap "
-        "(record_pack.warps_per_block)")
+        "(record_pack.warps_per_block); rd_loop: static shared memory "
+        "27392 B a block of one frame (ptxas above)")
 
 
 def phase_kernels(dev):
@@ -326,7 +351,7 @@ def phase_kernels(dev):
     rng = np.random.default_rng(2024)
     log("[kernels] tolerance 0: kernel and plain outputs must be equal bit "
         "for bit (f32 compared as int32 patterns)")
-    err = {"fft_stages": 0.0, "quant_cost": 0.0}
+    err = {"fft_stages": 0.0, "quant_cost": 0.0, "rd_loop": 0.0}
     rows = 2600
     for n in fft_stages.FFT_SIZES:
         shape = (rows, n) if n >= 512 else (rows, 8, n)
@@ -374,11 +399,124 @@ def phase_kernels(dev):
                     f"kernel == plain bitwise: {ok}")
                 check(ok, f"quant_cost fs={fs} G={g} amp={amp_kind} differs")
     err["record_pack"] = phase_kernels_record_pack(dev, rng)
-    # the three kernels on the inputs the main path gives them
+    # the four kernels on the inputs the main path gives them
     inputs = main_path_inputs(dev)
     for where, caps in inputs.items():
         hold_to_plain(caps, where, err)
+        for key, args in caps.items():
+            if key[0] == "rd_loop":
+                log_rd_corners(f"{where} {key[1]}", args)
+    phase_kernels_rd_loop(dev, inputs, err)
     return err, inputs
+
+
+def log_rd_corners(where, args):
+    """How many of K4's frames on these inputs reach each corner of the
+    loop (the plain version's per-frame counts) -> those counts."""
+    from mrcaudiocodec_tpu_torch import config as C
+    from mrcaudiocodec_tpu_torch.ops import rd
+    st = {k: v.cpu() for k, v in rd.loop_counts(*args).items()}
+    outer = st["outer"]
+    n = {"frames": int(outer.numel()), "loop ran": int((outer > 0).sum()),
+         "fallback": int((st["fallbacks"] > 0).sum()),
+         "at OUTER_MAX": int((outer == C.OUTER_MAX - 1).sum()),
+         "outer iterations": int(outer.sum()),
+         "candidates": int(st["cands"].sum()),
+         "budget-0 rows": int((args[2] == -C.FRAME_LEN_BITS - 7).sum())}
+    log(f"[kernels] rd_loop corners, {where}: {json.dumps(n)}; frames at "
+        f"the most amplification the loop can give (AMP_STEP x (OUTER_MAX - "
+        f"1) = {C.AMP_STEP * (C.OUTER_MAX - 1)}, so AMP_MAX = {C.AMP_MAX} is "
+        f"out of reach): those at OUTER_MAX")
+    return n
+
+
+def rd_loop_args(x, allowed, budget_content, bt, fs):
+    """K4's arguments for these frames, gain0 and bits0 from the inner
+    sweep on the card (K2), as rd_batch makes them."""
+    import torch
+    from mrcaudiocodec_tpu_torch import config as C
+    from mrcaudiocodec_tpu_torch.ops import rd
+    nf, nb = allowed.shape
+    zeros = torch.zeros((nf, nb), dtype=torch.int32, device=x.device)
+    zbin = torch.zeros((nf, C.LONG_COEFFS), dtype=torch.int32,
+                       device=x.device)
+    bt = bt.contiguous()
+    gain0, bits0 = rd.inner_gain_search(x, zeros, budget_content, bt, fs,
+                                        zbin)
+    return (x.contiguous(), allowed.contiguous(), budget_content.contiguous(),
+            bt, gain0.contiguous(), bits0.contiguous(), fs)
+
+
+def phase_kernels_rd_loop(dev, inputs, err):
+    """K4 against its plain version (K2's payloads plain too), bitwise, on
+    RD corner sets, each logged with how many frames reach each corner:
+    the inputs a 4 s stereo encode gives K4 at 16 kbps 48 kHz (starved:
+    the GAIN_MAX fallback) and at 320 kbps 44.1 kHz (lavish); the 30 s
+    clip's chunk with every frame SHORT, with every third row a silent
+    pad frame of budget 0, and with allowed noise a millionth (frames run
+    every outer iteration); 256 rows of each on the CPU too; then 20
+    repeated launches on the 30 s chunk."""
+    import torch
+    from mrcaudiocodec_tpu_torch import config as C
+    from mrcaudiocodec_tpu_torch.bench import make_clip
+    from mrcaudiocodec_tpu_torch.config import CodecConfig
+    from mrcaudiocodec_tpu_torch.models import codec
+    from mrcaudiocodec_tpu_torch.ops import rd
+    from mrcaudiocodec_tpu_torch.ops.kernels import rd_loop
+    from mrcaudiocodec_tpu_torch.profiling import capture_inputs
+    sets = {}
+    for name, fs, rate in (("starved 16 kbps stereo 48 kHz", 48000, 16000),
+                           ("lavish 320 kbps stereo 44.1 kHz", 44100,
+                            320000)):
+        cfg = CodecConfig(fs=fs, channels=2, bitrate=rate)
+        clip = make_clip(fs, 4.0, 2, seed=5)
+        caps = capture_inputs(lambda: codec.encode(clip, cfg, device=dev))
+        sets[name] = next(a for k, a in caps.items() if k[0] == "rd_loop")
+    base = next(a for k, a in inputs["encode"].items() if k[0] == "rd_loop")
+    x, allowed, bc, bt, _, _, fs = base
+    sets["30 s chunk, every frame SHORT"] = rd_loop_args(
+        x, allowed, bc, torch.full_like(bt, C.SHORT), fs)
+    pad = (torch.arange(x.shape[0], device=x.device) % 3 == 1)
+    sets["30 s chunk, every third row a silent budget-0 pad frame"] = \
+        rd_loop_args(torch.where(pad[:, None], 0.0, x),
+                     torch.where(pad[:, None], 0.0, allowed),
+                     torch.where(pad, -C.FRAME_LEN_BITS - 7, bc).to(
+                         torch.int32),
+                     torch.where(pad, C.LONG, bt).to(torch.int32), fs)
+    sets["30 s chunk, allowed noise a millionth"] = rd_loop_args(
+        x, allowed * 1e-6, bc, bt, fs)
+    need = {"starved 16 kbps stereo 48 kHz": "fallback",
+            "30 s chunk, allowed noise a millionth": "at OUTER_MAX",
+            "30 s chunk, every third row a silent budget-0 pad frame":
+                "budget-0 rows"}
+    for name, args in sets.items():
+        got, want = outputs("rd_loop", rd_loop.rd_loop_kernel(*args),
+                            rd_loop_plain_all(*args))
+        ok = all(bits_equal(g, w) for g, w in zip(got, want))
+        cpu = [a[:256].cpu() if isinstance(a, torch.Tensor) else a
+               for a in args]
+        ok_cpu = all(bits_equal(g[:256], w) for g, w in
+                     zip(got, rd.rd_loop_plain(*cpu)))
+        err["rd_loop"] = max([err["rd_loop"]] + [max_abs_err(g, w)
+                                                 for g, w in zip(got, want)])
+        log(f"[kernels] rd_loop on {name} ({args[0].shape[0]} rows, fs "
+            f"{args[6]}): kernel == plain bitwise on the card: {ok}; first "
+            f"256 rows == plain on the CPU: {ok_cpu}")
+        check(ok and ok_cpu, f"rd_loop differs from its plain version on "
+              f"{name}")
+        n = log_rd_corners(name, args)
+        check(n["loop ran"] > 0, f"rd_loop: the loop never ran on {name}")
+        if name in need:
+            check(n[need[name]] > 0, f"rd_loop: no frame reached "
+                  f"'{need[name]}' on {name}")
+    first = rd_loop.rd_loop_kernel(*base)
+    same = 0
+    for _ in range(20):
+        same += all(torch.equal(g, w) for g, w in
+                    zip(rd_loop.rd_loop_kernel(*base), first))
+    log(f"[kernels] rd_loop: 20 repeated launches on the 30 s chunk "
+        f"({base[0].shape[0]} rows) identical to the first: {same}/20")
+    check(same == 20, "rd_loop gave different outputs on a repeat")
 
 
 def outputs(name, got, want):
@@ -549,25 +687,37 @@ def phase_card_vs_cpu(dev):
 def phase_full(dev):
     """Main path at full size; returns (launch counts, stats)."""
     import torch
+    from mrcaudiocodec_tpu_torch import config as C
     from mrcaudiocodec_tpu_torch.bench import segmental_snr
-    from mrcaudiocodec_tpu_torch.models import codec
+    from mrcaudiocodec_tpu_torch.models import codec, encoder
     from mrcaudiocodec_tpu_torch.ops import rd
-    from mrcaudiocodec_tpu_torch.ops.kernels import (fft_stages, quant_cost,
-                                                     record_pack)
     seconds = 30.0
     cfg, xi = full_clip()
     x = xi.astype(np.float32) / np.float32(32768.0)
+    chunks = len(encoder.chunk_spans(C.frames_for_samples(xi.shape[0]),
+                                     cfg.channels))
 
-    kernels = (fft_stages, quant_cost, record_pack)
+    kernels = kernel_modules()
+    plain_loops = [0]
+    orig_plain = rd.rd_loop_plain
+
+    def counted_plain(*a, **k):
+        plain_loops[0] += 1
+        return orig_plain(*a, **k)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for k in kernels:
-        k.launches = 0
-    rd.host_syncs = 0
-    bs = codec.encode(xi, cfg, device=dev)
-    torch.cuda.synchronize()
-    enc_launch = {k.__name__.rsplit(".", 1)[-1]: k.launches for k in kernels}
-    syncs = rd.host_syncs
+    rd.rd_loop_plain = counted_plain
+    try:
+        for k in kernels:
+            k.launches = 0
+        rd.host_syncs = 0
+        bs = codec.encode(xi, cfg, device=dev)
+        torch.cuda.synchronize()
+        enc_launch = {k.__name__.rsplit(".", 1)[-1]: k.launches
+                      for k in kernels}
+        syncs = rd.host_syncs
+    finally:
+        rd.rd_loop_plain = orig_plain
     enc_peak = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     for k in kernels:
@@ -576,10 +726,24 @@ def phase_full(dev):
     torch.cuda.synchronize()
     dec_launch = {k.__name__.rsplit(".", 1)[-1]: k.launches for k in kernels}
     dec_peak = torch.cuda.max_memory_allocated()
-    log(f"[full] launches in one encode: {enc_launch}; in one decode: "
-        f"{dec_launch}; RD loop-exit host syncs in the encode: {syncs}")
+    rd.host_syncs = 0
+    bs_plain = plain_path(lambda: codec.encode(xi, cfg, device=dev))
+    plain_syncs = rd.host_syncs
+    log(f"[full] launches in one encode ({chunks} chunk): {enc_launch}; in "
+        f"one decode: {dec_launch}; RD loop-exit host syncs in the encode: "
+        f"{syncs}, plain RD loops run: {plain_loops[0]}; the same encode "
+        f"with K1-K4 plain: {plain_syncs} host syncs, stream equal: "
+        f"{bs_plain == bs}")
     check(enc_launch["fft_stages"] > 0, "encode launched no fft_stages")
-    check(enc_launch["quant_cost"] > 0, "encode launched no quant_cost")
+    check(enc_launch["quant_cost"] == 2 * chunks,
+          f"encode launched quant_cost {enc_launch['quant_cost']} times, "
+          f"not twice a chunk")
+    check(enc_launch["rd_loop"] == chunks,
+          f"encode launched rd_loop {enc_launch['rd_loop']} times, not once "
+          f"a chunk")
+    check(syncs == 0 and plain_loops[0] == 0,
+          f"the card encode ran the plain RD loop ({syncs} host syncs)")
+    check(bs_plain == bs, "the plain-path encode's stream differs")
     check(enc_launch["record_pack"] > 0, "encode launched no record_pack")
     check(dec_launch["fft_stages"] > 0, "decode launched no fft_stages")
     check(y.shape == x.shape and np.isfinite(y).all(),
@@ -606,7 +770,7 @@ def phase_full(dev):
              "decode_rtf": seconds * 1e3 / min(dec_ms),
              "kbps": kbps, "seg_snr_db": ssnr,
              "encode_peak_bytes": enc_peak, "decode_peak_bytes": dec_peak,
-             "host_syncs": syncs}
+             "host_syncs": syncs, "plain_path_host_syncs": plain_syncs}
     log(f"[full] 30 s stereo 44.1 kHz 128 kbps int16: encode ms {enc_ms} "
         f"(RTF {stats['encode_rtf']:.2f}x best); decode ms {dec_ms} "
         f"(RTF {stats['decode_rtf']:.2f}x best); {kbps:.2f} kbps; "
@@ -623,8 +787,9 @@ def phase_breakdown(dev):
     import torch
     from mrcaudiocodec_tpu_torch import config as C
     from mrcaudiocodec_tpu_torch.models import codec, decoder, encoder, packing
-    from mrcaudiocodec_tpu_torch.ops import device_pack, reservoir
-    from mrcaudiocodec_tpu_torch.profiling import kernel_device_totals
+    from mrcaudiocodec_tpu_torch.ops import device_pack, rd, reservoir
+    from mrcaudiocodec_tpu_torch.profiling import (device_ms,
+                                                   kernel_device_totals)
     cfg, xi = full_clip()
     bs = codec.encode(xi, cfg, device=dev)                    # warm-up
     laps = {}
@@ -730,15 +895,51 @@ def phase_breakdown(dev):
             f"events")
         for key, ms, count in rows[:8]:
             log(f"[profile] {name}:   {ms:9.3f} ms  x{count:<6} {key[:90]}")
-        tot = kernel_device_totals(prof, ("fft_stages_kernel",
-                                          "quant_cost_kernel",
-                                          "record_pack_kernel"))
-        log(f"[profile] {name}: K1 fft_stages {tot['fft_stages_kernel'][0]} "
-            f"launches, {tot['fft_stages_kernel'][1]:.4f} ms device; K2 "
-            f"quant_cost {tot['quant_cost_kernel'][0]} launches, "
-            f"{tot['quant_cost_kernel'][1]:.4f} ms device; K3 record_pack "
-            f"{tot['record_pack_kernel'][0]} launches, "
-            f"{tot['record_pack_kernel'][1]:.4f} ms device")
+        tot = kernel_device_totals(prof, [f"{k}_kernel" for k in KERNELS])
+        log(f"[profile] {name}: " + "; ".join(
+            f"K{i + 1} {k} {tot[k + '_kernel'][0]} launches, "
+            f"{tot[k + '_kernel'][1]:.4f} ms device"
+            for i, k in enumerate(KERNELS)))
+
+    # decide_chunk on the clip's chunk: with K4; with the loop in its
+    # plain version and K2 for every sweep (the path before K4); with
+    # every kernel plain. In turns, the order reversed every round
+    ch, bud = chunks[0], budgets[:, spans[0][0]:spans[0][0] + spans[0][1]]
+    runs = {"K4": lambda: encoder.decide_chunk(ch, bud, cfg),
+            "plain RD loop": lambda: plain_path(
+                lambda: encoder.decide_chunk(ch, bud, cfg), ("rd_loop",)),
+            "all plain": lambda: plain_path(
+                lambda: encoder.decide_chunk(ch, bud, cfg))}
+    ref = runs["K4"]()
+    walls = {k: [] for k in runs}
+    syncs = {}
+    for name, fn in runs.items():
+        rd.host_syncs = 0
+        same = all(torch.equal(a, b) for a, b in zip(fn(), ref))
+        syncs[name] = rd.host_syncs
+        check(same, f"decide_chunk ({name}) differs from K4's")
+    for r in range(6):
+        order = list(runs) if r % 2 else list(runs)[::-1]
+        for name in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[name]()
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+    res = {}
+    for name, fn in runs.items():
+        dms = device_ms(fn, 5)
+        w = walls[name][1:]
+        res[name] = {"wall_ms": w, "best_ms": min(w),
+                     "median_ms": float(np.median(w)), "device_ms": dms,
+                     "host_syncs": syncs[name]}
+        log(f"[breakdown] decide_chunk ({spans[0][1]} frames x "
+            f"{cfg.channels} rows) {name}: wall best {min(w):.3f} ms, "
+            f"median {np.median(w):.3f} ms (5 runs after a warm-up, in "
+            f"turns), device {dms} ms a call, busy share "
+            f"{'not measured' if dms is None else f'{dms / min(w):.3f}'}, "
+            f"{syncs[name]} host syncs a call; ms {w}")
+    return res
 
 
 def time_input(where, key, args):
@@ -774,14 +975,15 @@ def phase_times(dev, inputs):
     (main_path_inputs), beside the card's bound for the same work. The
     kernels line takes the 30 s clip's encode: K1 summed over the four FFT
     layouts of its one chunk (2586 frame rows), K2 at G=32 over those rows,
-    K3 on its 2586 records. Every other captured input (K2 at G=8/4/1, the
+    K3 on its 2586 records, K4 on its 2586 rows (its plain version with
+    K2's plain payloads). Every other captured input (K2 at G=8, the
     decode's FFTs, the 64-clip batch's chunk of 8192 frame rows) is timed
     too and kept under by_shape. Event ms hold the host's launch interval
     where a kernel is short (and K3's read of its status); device ms (the
     profiler's kernel time per launch) do not."""
     from mrcaudiocodec_tpu_torch.profiling import F32_OPS_PER_S, bound_ms
     out = {}
-    for name in ("fft_stages", "quant_cost", "record_pack"):
+    for name in KERNELS:
         by_shape = {}
         for where, caps in inputs.items():
             for key, args in caps.items():
@@ -809,7 +1011,7 @@ def phase_times(dev, inputs):
                 f"bound {line['bound_ms']:.4f} ms")
         else:
             first = next(v for k, v in enc.items()
-                         if name == "record_pack" or k.endswith(", 32)"))
+                         if name != "quant_cost" or k.endswith(", 32)"))
             line = {k: first[k] for k in ("ms", "device_ms", "plain_ms",
                                           "bound_ms", "bound_by")}
             line["library_ms"] = None
@@ -834,10 +1036,12 @@ MIX_CLASSES = {
 
 
 def log_instruction_mix():
-    """Each K1/K2/K3 kernel's SASS instructions (cuobjdump -sass), by
+    """Each K1-K4 kernel's SASS instructions (cuobjdump -sass), by
     class: the static counts the device times are read against (K1's
     kernels are straight-line code, K2's gain loop is unrolled over a
-    lane's 8 tuples, 32 bins, K3's over a lane's 16 pairs, twice)."""
+    lane's 8 tuples, 32 bins, K3's over a lane's 16 pairs, twice; K4
+    holds K2's routine twice, a refine candidate's and the fallback's,
+    and the over-mask's 8 bins a thread unrolled)."""
     from mrcaudiocodec_tpu_torch.ops.kernels import build
     from mrcaudiocodec_tpu_torch.probes import fma_probe
     for lib in build.MAIN:
@@ -1084,13 +1288,11 @@ def phase_corpus(dev):
     from mrcaudiocodec_tpu_torch import corpus
     from mrcaudiocodec_tpu_torch.config import CodecConfig, frames_for_samples
     from mrcaudiocodec_tpu_torch.models import codec
-    from mrcaudiocodec_tpu_torch.ops.kernels import (fft_stages, quant_cost,
-                                                     record_pack)
     from mrcaudiocodec_tpu_torch.profiling import kernel_device_totals
     n_clips, seconds = 64, 10.0
     cfg = CodecConfig(fs=44100, channels=2, bitrate=128000)
     clips = corpus._synth_corpus(n_clips, seconds)
-    kernels = (fft_stages, quant_cost, record_pack)
+    kernels = kernel_modules()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k in kernels:
@@ -1132,9 +1334,7 @@ def phase_corpus(dev):
         torch.cuda.synchronize()
     busy = sum(getattr(e, "self_device_time_total", 0)
                for e in prof.key_averages()) / 1e3
-    tot = kernel_device_totals(prof, ("fft_stages_kernel",
-                                      "quant_cost_kernel",
-                                      "record_pack_kernel"))
+    tot = kernel_device_totals(prof, [f"{k}_kernel" for k in KERNELS])
     audio = sum(x.shape[0] for x in clips) / cfg.fs
     frames = sum(frames_for_samples(x.shape[0]) for x in clips) * cfg.channels
     best = min(walls)
@@ -1144,14 +1344,15 @@ def phase_corpus(dev):
              "frames_per_second": frames * 1e3 / best,
              "peak_bytes": peak, "device_ms": busy,
              "busy_share": busy / best if busy else None,
-             "launches": launches}
+             "launches": launches,
+             "kernel_device": {k: tot[f"{k}_kernel"] for k in KERNELS}}
     log(f"[corpus] wall ms {walls} (best {best:.1f}, median "
         f"{stats['median_ms']:.1f}); RTF {stats['realtime_factor']:.1f}x; "
         f"{stats['frames_per_second']:.0f} frames/s; device time "
         f"{busy:.2f} ms in one profiled batch, busy share "
         f"{stats['busy_share']}; K1 {tot['fft_stages_kernel']}, K2 "
-        f"{tot['quant_cost_kernel']}, K3 {tot['record_pack_kernel']} "
-        f"(launches, device ms)")
+        f"{tot['quant_cost_kernel']}, K3 {tot['record_pack_kernel']}, K4 "
+        f"{tot['rd_loop_kernel']} (launches, device ms)")
     return launches, stats, outs
 
 
@@ -1264,14 +1465,12 @@ def phase_parallel(dev, corpus_streams, err):
     from mrcaudiocodec_tpu_torch import audiofile, corpus
     from mrcaudiocodec_tpu_torch.config import CodecConfig, frames_for_samples
     from mrcaudiocodec_tpu_torch.models import codec
-    from mrcaudiocodec_tpu_torch.ops.kernels import (fft_stages, quant_cost,
-                                                     record_pack)
     from mrcaudiocodec_tpu_torch.bench import make_clip
     from mrcaudiocodec_tpu_torch.parallel import launch, mesh, sharded
     from mrcaudiocodec_tpu_torch.profiling import capture_inputs
     t_phase = time.perf_counter()
     root = os.path.dirname(os.path.abspath(__file__))
-    kernels = (fft_stages, quant_cost, record_pack)
+    kernels = kernel_modules()
 
     def zero_counts():
         torch.cuda.synchronize()
@@ -1309,7 +1508,7 @@ def phase_parallel(dev, corpus_streams, err):
     t0 = time.perf_counter()
     plain3 = plain_path(lambda: codec.encode(x3, cfg3, device=dev))
     log(f"[parallel] config 3 card stream == the card encode through the "
-        f"plain versions of K1, K2, K3: {want3 == plain3} (plain run "
+        f"plain versions of K1-K4: {want3 == plain3} (plain run "
         f"{time.perf_counter() - t0:.2f} s host clock)")
     check(want3 == plain3, "config 3's card stream differs from its plain "
           "encode")
@@ -1383,6 +1582,9 @@ def phase_parallel(dev, corpus_streams, err):
     for where, c in caps.items():
         log(f"[parallel] {where}: {len(c)} kernel inputs captured")
         hold_to_plain(c, where, err)
+        for key, args in c.items():
+            if key[0] == "rd_loop":
+                log_rd_corners(f"{where} {key[1:]}", args)
     del caps
     torch.cuda.empty_cache()
 
@@ -1535,12 +1737,11 @@ def phase_bench(smi):
     import io
     import torch
     from mrcaudiocodec_tpu_torch import bench
-    from mrcaudiocodec_tpu_torch.ops import device_pack
-    from mrcaudiocodec_tpu_torch.ops.kernels import (fft_stages, quant_cost,
-                                                     record_pack)
-    kernels = (fft_stages, quant_cost, record_pack)
+    from mrcaudiocodec_tpu_torch.ops import device_pack, rd
+    kernels = kernel_modules()
+    fft_stages, quant_cost = kernels[:2]
     plains = ((fft_stages, "fft_plain"), (quant_cost, "payload_bits_plain"),
-              (device_pack, "pack_stream_plain"))
+              (device_pack, "pack_stream_plain"), (rd, "rd_loop_plain"))
     plain_calls = {attr: 0 for _, attr in plains}
     saved = [getattr(mod, attr) for mod, attr in plains]
     for (mod, attr), orig in zip(plains, saved):
@@ -1566,7 +1767,7 @@ def phase_bench(smi):
     launches = {k.__name__.rsplit(".", 1)[-1]: k.launches for k in kernels}
     lines = out.getvalue().strip().splitlines()
     log(f"[bench] bench.main(['--full', '--kernels']): exit {rc} in "
-        f"{dt:.1f} s; K1-K3 launches {launches}; plain versions called "
+        f"{dt:.1f} s; K1-K4 launches {launches}; plain versions called "
         f"{plain_calls}; stdout {lines}")
     check(rc == 0 and len(lines) == 1, "the bench did not print one line")
     res = json.loads(lines[0])
@@ -1610,7 +1811,7 @@ def main() -> int:
     phase_goldens(dev)
     phase_card_vs_cpu(dev)
     launches, stats = phase_full(dev)
-    phase_breakdown(dev)
+    stats["decide"] = phase_breakdown(dev)
     probe_launches, probe_stats = phase_probes(dev)
     _, corpus_stats, corpus_streams = phase_corpus(dev)
     phase_cli(dev)
@@ -1626,6 +1827,10 @@ def main() -> int:
         "record_pack": ("cuda", "mrcaudiocodec_tpu_torch/csrc/record_pack.cu",
                         "mrcaudiocodec_tpu/ops/device_pack.py:181 "
                         "(pack_records_device, XLA; no pallas_call)"),
+        "rd_loop": ("cuda", "mrcaudiocodec_tpu_torch/csrc/rd_loop.cu",
+                    "mrcaudiocodec_tpu/ops/rd.py:189, :200, :255-269 "
+                    "(refine lax.while_loop, fallback lax.cond, outer "
+                    "lax.while_loop; XLA, no pallas_call)"),
     }
     kernels = []
     for name, (route, source, replaces) in meta.items():

@@ -20,8 +20,8 @@ device_resident_rtf, stream_matches_spec) and logs on stderr:
     worst logged beside the best;
   - device_resident_rtf: the audio chunks and stream orders staged on the
     device before the clock; `encoder.encode_chunks` (analysis, budgets,
-    RD + codebooks with K2, record pack with K3 and its status read), then
-    a synchronize; no body download. Best of RESIDENT_TRIALS;
+    RD + codebooks with K2 and K4, record pack with K3 and its status
+    read), then a synchronize; no body download. Best of RESIDENT_TRIALS;
   - quality: the --spec-seconds clip encoded and decoded by the port and
     by the spec: segmental SNR (channel 0), PSNR, equal stream bytes;
   - --full: decode RTF (`decode(bs, pcm_dtype="int16")`, a warm-up and one
@@ -31,7 +31,7 @@ device_resident_rtf, stream_matches_spec) and logs on stderr:
   - --kernels (card only; run last, so that no profiler session precedes
     the timings above): on the --seconds clip's first chunk, staged on
     the card, the wall and profiler device ms per call of the encoder's
-    analysis, RD + codebook and pack stages, K1-K3's device ms in them
+    analysis, RD + codebook and pack stages, K1-K4's device ms in them
     against the card's bound, and K1 beside torch.fft.fft with their
     inputs in L2 and evicted from it.
 

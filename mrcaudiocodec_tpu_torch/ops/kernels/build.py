@@ -14,14 +14,18 @@ of `--fmad=false`, the FMA probe's positive control. Only the FMA probe
 loads it; no normative path names it.
 
 Libraries go into the package's git-ignored `build/` directory at first
-use. `build()` starts one nvcc per source, all at once, and returns each
-compiler log (`-Xptxas -v`: registers, shared memory, spills). A failed
-build raises; nothing falls back.
+use. A library is stale when its source or a csrc/*.cuh header the source
+includes (`#include "name.cuh"`, K2's warp routine in quant_cost_warp.cuh,
+which K2 and K4 share) is newer than it. `build()` starts one nvcc per
+stale source, all at once, and returns each compiler log (`-Xptxas -v`:
+registers, shared memory, spills). A failed build raises; nothing falls
+back.
 """
 from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -30,7 +34,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
-MAIN = ("fft_stages", "quant_cost", "record_pack")
+MAIN = ("fft_stages", "quant_cost", "record_pack", "rd_loop")
 PROBES = ("probe_fma", "probe_quant_g32", "probe_quant_bisect",
           "probe_primitives", "probe_fma_contract")
 SOURCES = MAIN + PROBES
@@ -62,6 +66,24 @@ def _so(name: str) -> str:
     return os.path.join(BUILD, f"lib{name}.so")
 
 
+def inputs(name: str) -> list[str]:
+    """The files library `name` is built from: its source and the csrc
+    headers that source includes."""
+    src = os.path.join(CSRC, f"{_VARIANTS.get(name, (name,))[0]}.cu")
+    with open(src) as f:
+        heads = re.findall(r'^\s*#\s*include\s+"([^"/]+\.cuh)"', f.read(),
+                           re.M)
+    return [src] + [os.path.join(CSRC, h) for h in heads]
+
+
+def stale(name: str) -> bool:
+    """True when library `name` is missing or older than a file it is
+    built from."""
+    so = _so(name)
+    return not os.path.exists(so) or any(
+        os.path.getmtime(p) > os.path.getmtime(so) for p in inputs(name))
+
+
 def build(names=SOURCES, force: bool = False) -> dict[str, str]:
     """Compile every named source that has no up-to-date library (every
     one if `force`), one nvcc process per source started together.
@@ -72,8 +94,7 @@ def build(names=SOURCES, force: bool = False) -> dict[str, str]:
         source, flags = _VARIANTS.get(name, (name, NVCC_FLAGS))
         src = os.path.join(CSRC, f"{source}.cu")
         so = _so(name)
-        if (not force and os.path.exists(so)
-                and os.path.getmtime(so) >= os.path.getmtime(src)):
+        if not force and not stale(name):
             continue
         tmp = f"{so}.tmp.{os.getpid()}.{threading.get_ident()}"
         procs[name] = (subprocess.Popen(

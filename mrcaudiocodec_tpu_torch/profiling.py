@@ -3,7 +3,7 @@
     card_line()                    the card's name and power limit
     device_ms(fn, ...)             profiler device ms per call of fn()
     kernel_device_totals(prof, names)
-    capture_inputs(run, per_key)   K1/K2/K3 inputs recorded at their wrappers
+    capture_inputs(run, per_key)   K1-K4 inputs recorded at their wrappers
     kernel_bound(key, args)        bytes, ops and op rate of one launch
     bound_ms(parts)                the least time for a set of launches
 
@@ -26,7 +26,13 @@ F32_OPS_PER_S = 67e12 / 2
 # H100 SXM: 64 INT32 lanes per SM against 128 FP32 (Hopper white paper)
 INT32_OPS_PER_S = F32_OPS_PER_S / 2
 
-KERNEL_NAMES = ("fft_stages", "quant_cost", "record_pack")
+KERNEL_NAMES = ("fft_stages", "quant_cost", "record_pack", "rd_loop")
+# f32 ops a bin (K2's pricing): quantize (two xsqrt of 24 ops, the step
+# and |x| * step, a * sqrt(a), add, floor, min); dequantize (max, xlog2's
+# 26, the 4/3 multiply, xexp2's 20, the zero select, the step, the sign);
+# then d = x - xhat and d * d; the scan adds one op a bin a stage
+QUANT_OPS = 54
+DEQUANT_OPS = 53
 
 
 def log(*a):
@@ -99,20 +105,23 @@ def kernel_device_totals(prof, names):
 
 
 def capture_inputs(run, per_key: int = 1):
-    """Run run() with K1's, K2's and K3's wrappers recording a copy of
-    their arguments -> {key: args} of the first `per_key` calls of each
+    """Run run() with K1's, K2's, K3's and K4's wrappers recording a copy
+    of their arguments -> {key: args} of the first `per_key` calls of each
     key: K1 ("fft_stages", shape), K2 ("quant_cost", (rows, G)), K3
-    ("record_pack", (records in the stream order,)), in call order; the
-    i-th call (i > 0) of a key is stored under key + (i,)."""
+    ("record_pack", (records in the stream order,)), K4 ("rd_loop",
+    (rows,)), in call order; the i-th call (i > 0) of a key is stored
+    under key + (i,)."""
     import torch
-    from .ops.kernels import fft_stages, quant_cost, record_pack
+    from .ops.kernels import fft_stages, quant_cost, rd_loop, record_pack
     seen, calls = {}, {}
     hooks = ((fft_stages, "fft_kernel",
               lambda a: ("fft_stages", tuple(a[0].shape))),
              (quant_cost, "payload_bits_kernel",
               lambda a: ("quant_cost", tuple(a[2].shape))),
              (record_pack, "pack_stream_kernel",
-              lambda a: ("record_pack", (a[5].shape[0],))))
+              lambda a: ("record_pack", (a[5].shape[0],))),
+             (rd_loop, "rd_loop_kernel",
+              lambda a: ("rd_loop", (a[0].shape[0],))))
     saved = []
     for mod, attr, key_of in hooks:
         orig = getattr(mod, attr)
@@ -151,7 +160,22 @@ def kernel_bound(key, args):
     if key[0] == "quant_cost":
         rows, g = args[2].shape
         return (rows * C.LONG_COEFFS * 8 + rows * (2 * g + 1) * 4,
-                rows * g * C.LONG_COEFFS * 54, F32_OPS_PER_S)
+                rows * g * C.LONG_COEFFS * QUANT_OPS, F32_OPS_PER_S)
+    if key[0] == "rd_loop":
+        # x and allowed in, q and amp out, six [F] words; the candidates
+        # and over-masks these inputs need, counted by the plain loop
+        from .ops import rd
+        allowed, bt, fs = args[1], args[3], args[6]
+        rows, nb = allowed.shape
+        st = rd.loop_counts(*args)
+        short = (bt == C.SHORT).to(st["over_masks"].dtype)
+        stages = (short * rd.scan_stages(fs, True)
+                  + (1 - short) * rd.scan_stages(fs, False))
+        per_mask = QUANT_OPS + DEQUANT_OPS + 2 + stages
+        ops = C.LONG_COEFFS * (int(st["cands"].sum()) * QUANT_OPS
+                               + int((st["over_masks"] * per_mask).sum()))
+        return (rows * (2 * C.LONG_COEFFS + 2 * nb + 6) * 4, ops,
+                F32_OPS_PER_S)
     # K3: the packed records' q, amp, cb, gain, bt and their order entries
     # in; the compact body and nbytes out. Integer work these records need:
     # a shift and an OR per bit-carrying slot

@@ -16,8 +16,19 @@ model of its lane runs (whole-word stores inside a run, ORs on its two
 edge words) against `pack_records_plain`'s bytes, a model of its
 decoupled look-back (tiles taken in order by a bounded number of resident
 blocks, finishing in random orders) against an exclusive cumsum, and its
-warps per block against the shared memory a block may use.
+warps per block against the shared memory a block may use. K4
+(csrc/rd_loop.cu): `k4_model` runs its schedule one frame at a time (the
+band facts the kernel derives from `quant_cost.band_tuples`, 4 candidates
+a step in ascending order, the first fit of the first block with one, the
+fallback, the frame's own exit, the pinned scan in double-buffered stage
+form) and must equal `rd_batch` on tests/test_torch_rd_loop.py's corner
+sets, so the per-frame exit is the batch's; its constants against the
+format's and `rd_loop.consts()`, its static shared memory; and
+`build.stale`, which follows the csrc/*.cuh headers a source includes.
 """
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -29,7 +40,8 @@ from mrcaudiocodec_tpu_torch import config as C
 from mrcaudiocodec_tpu_torch import tables as T
 from mrcaudiocodec_tpu_torch import xmath
 from mrcaudiocodec_tpu_torch.ops import device_pack
-from mrcaudiocodec_tpu_torch.ops.kernels import (fft_stages, quant_cost,
+from mrcaudiocodec_tpu_torch.ops.kernels import (build, fft_stages,
+                                                 quant_cost, rd_loop,
                                                  record_pack)
 
 # ---------------------------------------------------------------------------
@@ -635,3 +647,270 @@ def test_k3_warps_per_block_fit_shared_memory(cap):
     # 128 B: 5592 B, rounded up to 16
     assert 4 * (572 + 2 + 24) + 5 * (512 + 128) == 5592
     assert record_pack.STATIC_SMEM == 5600
+
+
+# ---------------------------------------------------------------------------
+# K4 (csrc/rd_loop.cu): its schedule, one frame at a time
+# ---------------------------------------------------------------------------
+
+WARPS = 4                              # kWarps = REFINE_BLOCK
+REFINE_BLOCKS = 4                      # kRefineBlocks
+
+
+def k4_frame_facts(fs, bt):
+    """What K4's set-up derives from band_tuples[bt]: band edges in bins,
+    the tuple -> band map, each bin's segment start, the widest band, the
+    real bands' count, each band's last bin and whether the band before it
+    is real."""
+    te = quant_cost.band_tuples(fs)[bt].astype(np.int64)
+    nb = len(te) - 1
+    edge = 4 * te
+    band = np.repeat(np.arange(nb), np.diff(te))              # [256]
+    seg = edge[band[np.arange(C.LONG_COEFFS) >> 2]]
+    width = np.diff(edge)
+    real = width > 0
+    real_prev = np.concatenate([[False], real[:-1]])
+    return dict(edge=edge, band=band, seg=seg, maxw=int(width.max()),
+                nreal=int(real.sum()), real=real, real_prev=real_prev,
+                end=np.where(real, edge[1:] - 1, 0))
+
+
+def k4_over(x, q, gain, amp, facts, allowed):
+    """over_mask the kernel's way on one frame: each bin dequantized and
+    squared, the scan double-buffered one stage at a time."""
+    from mrcaudiocodec_tpu_torch.ops import quantize
+    amp_bin = torch.from_numpy(amp[facts["band"]].repeat(4))
+    e = torch.clamp(gain - amp_bin, C.GAIN_MIN, C.GAIN_MAX)
+    d = x - quantize.dequantize(q, e)
+    buf = [(d * d).numpy(), None]
+    cur, s, idx = 0, 1, np.arange(C.LONG_COEFFS)
+    while s < facts["maxw"]:
+        src = buf[cur]
+        take = idx - s >= facts["seg"]
+        buf[cur ^ 1] = np.where(take, src + src[np.maximum(idx - s, 0)], src)
+        cur ^= 1
+        s <<= 1
+    noise = buf[cur][facts["end"]]
+    return facts["real"] & (noise > allowed) & (amp < C.AMP_MAX)
+
+
+def k4_model(x, allowed, bc, bt, gain0, bits0, fs):
+    """csrc/rd_loop.cu's schedule, frame by frame -> (q, amp, gain, bits)
+    and each frame's refine iterations."""
+    from mrcaudiocodec_tpu_torch.ops import quantize
+    len_sf = T.code_arrays()["len_sf"]
+    nf, nb = x.shape[0], allowed.shape[1]
+    outs = [np.zeros((nf, C.LONG_COEFFS), np.int32),
+            np.zeros((nf, nb), np.int32), np.zeros(nf, np.int32),
+            np.zeros(nf, np.int32)]
+    iters = np.zeros(nf, np.int64)
+    for f in range(nf):
+        facts = k4_frame_facts(fs, int(bt[f]))
+        xf, btf = x[f:f + 1], bt[f:f + 1]
+        amp = np.zeros(nb, np.int64)
+        gain, bits = int(gain0[f]), int(bits0[f])
+
+        def quantize_at(g, amp):
+            amp_bin = torch.from_numpy(amp[facts["band"]].repeat(4))
+            return quantize.quantize(xf[0], torch.clamp(g - amp_bin, 0, 255))
+
+        q = quantize_at(gain, amp)
+        over = k4_over(xf[0], q, gain, amp, facts, allowed[f].numpy())
+        for it in range(1, C.OUTER_MAX):
+            if not over.any():                      # the frame's own exit
+                break
+            iters[f] += 1
+            amp = np.minimum(amp + C.AMP_STEP * over, C.AMP_MAX)
+            prev = np.where(facts["real_prev"],
+                            np.concatenate([[0], amp[:-1]]), 0)
+            sf = np.where(facts["real"],
+                          len_sf[prev - amp + C.SF_DELTA_MAX], 0).sum()
+            fixed = (C.BLOCK_TYPE_BITS + C.GAIN_BITS
+                     + C.CB_BITS * facts["nreal"] + int(sf))
+            amp_bin = torch.from_numpy(
+                amp[facts["band"]].repeat(4).astype(np.int32))[None]
+
+            def payload(gains):
+                g = torch.tensor([gains], dtype=torch.int32)
+                return quant_cost.payload_bits_plain(xf, amp_bin, g, btf,
+                                                     fs)[0].numpy()
+            prev_gain, found = gain, False
+            for b in range(REFINE_BLOCKS):
+                cand = [min(prev_gain + WARPS * b + w, C.GAIN_MAX)
+                        for w in range(WARPS)]
+                slot = payload(cand) + fixed           # one warp each
+                for w in range(WARPS):
+                    if not found and slot[w] <= int(bc[f]):
+                        gain, bits, found = cand[w], int(slot[w]), True
+                if found:
+                    break
+            if not found:
+                gain = C.GAIN_MAX
+                bits = int(payload([C.GAIN_MAX])[0]) + fixed
+            q = quantize_at(gain, amp)
+            over = k4_over(xf[0], q, gain, amp, facts, allowed[f].numpy())
+        outs[0][f], outs[1][f] = q.numpy(), amp
+        outs[2][f], outs[3][f] = gain, bits
+    return outs, iters
+
+
+@pytest.mark.parametrize("fs,kind", [(44100, "adversarial"),
+                                     (48000, "starved"),
+                                     (32000, "all_short"),
+                                     (44100, "silent_pad")])
+def test_k4_schedule_model_matches_rd_batch(fs, kind):
+    from mrcaudiocodec_tpu_torch.ops import rd
+    from test_torch_rd_loop import loop_inputs, rd_case
+    case = rd_case(kind, fs)
+    if kind != "adversarial":
+        case = tuple(v[:12] for v in case)
+    args = loop_inputs(*case, fs)
+    got, iters = k4_model(*args, fs)
+    want = rd.rd_batch(*(torch.from_numpy(v) for v in case), fs)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.numpy())
+    st = rd.loop_counts(*args, fs)
+    # each frame's own exit took the batch loop's iterations for that frame
+    np.testing.assert_array_equal(iters, st["outer"].numpy())
+    assert iters.max() > 0
+
+
+@pytest.mark.parametrize("fs", [32000, 44100, 48000])
+def test_k4_frame_facts_match_the_scan_tables(fs):
+    """The kernel's band facts give xpsy's pinned scan tables: the stages
+    (1, 2, 4, ... below the widest band), the include masks and the band
+    ends, for every block type."""
+    from mrcaudiocodec_tpu_torch import xpsy
+    from mrcaudiocodec_tpu_torch.ops import entropy, rd
+    from mrcaudiocodec_tpu_torch.ops.psycho import unified_band_edges
+    le, se = unified_band_edges(fs)
+    tb = entropy.dev_tables(fs, "cpu")
+    for bt in range(C.N_BLOCK_TYPES):
+        facts = k4_frame_facts(fs, bt)
+        stages, ends = xpsy._seg_tables_from_edges(
+            se if bt == C.SHORT else le)
+        shifts = []
+        s = 1
+        while s < facts["maxw"]:
+            shifts.append(s)
+            s <<= 1
+        assert shifts == [d for d, _ in stages]
+        assert len(shifts) == rd.scan_stages(fs, bt == C.SHORT)
+        idx = np.arange(C.LONG_COEFFS)
+        for d, mask in stages:
+            np.testing.assert_array_equal(idx - d >= facts["seg"], mask)
+        real = facts["real"]
+        np.testing.assert_array_equal(facts["end"][real], ends[real])
+        np.testing.assert_array_equal(real, tb["width"][bt].numpy() > 0)
+        assert facts["nreal"] == int(tb["nreal"][bt])
+
+
+# ---------------------------------------------------------------------------
+# K4 (csrc/rd_loop.cu): its constants, its shared memory, the build's
+# staleness rule for the header it shares with K2
+# ---------------------------------------------------------------------------
+
+RD_LOOP_CU = os.path.join(os.path.dirname(build.CSRC), "csrc", "rd_loop.cu")
+
+
+def _cu_ints(path):
+    """{name: value} of the `constexpr int kName = <int expression>;`
+    lines of the shared header and a source (one name a line, or several
+    after commas; C's / on ints is //)."""
+    text = ""
+    for p in (os.path.join(os.path.dirname(path), "quant_cost_warp.cuh"),
+              path):
+        with open(p) as f:
+            text += f.read()
+    out = {}
+    for decl in re.findall(r"constexpr int ([^;]+);", text):
+        for part in decl.split(","):
+            name, expr = (s.strip() for s in part.split("="))
+            out[name] = eval(re.sub(r"//.*", "", expr).replace("/", "//"),
+                             {}, dict(out))
+    return out
+
+
+def test_k4_constants_match_the_format():
+    k = _cu_ints(RD_LOOP_CU)
+    from mrcaudiocodec_tpu_torch.ops import rd
+    assert k["kWarps"] == rd.REFINE_BLOCK
+    assert k["kRefineBlocks"] == rd.N_REFINE_BLOCKS == 4
+    assert (k["kOuterMax"], k["kAmpStep"], k["kAmpMax"], k["kGainMax"]) == (
+        C.OUTER_MAX, C.AMP_STEP, C.AMP_MAX, C.GAIN_MAX)
+    assert k["kFixedBits"] == C.BLOCK_TYPE_BITS + C.GAIN_BITS
+    assert (k["kCbBits"], k["kSfDeltaMax"]) == (C.CB_BITS, C.SF_DELTA_MAX)
+    assert k["kLenSf"] == len(T.code_arrays()["len_sf"])
+    # the constants' offsets in rd_loop.consts()
+    from mrcaudiocodec_tpu_torch import xpsy
+    from mrcaudiocodec_tpu_torch.ops import quantize
+    c = rd_loop.consts()
+    assert c.dtype == np.float32 and len(c) == k["kAllConsts"]
+    np.testing.assert_array_equal(c[:6], np.float32(xpsy.RSQRT_P))
+    np.testing.assert_array_equal(c[6:10], quantize.INV_FRACS)
+    assert c[10] == np.float32(quantize.QUANT_MAGIC)
+    np.testing.assert_array_equal(c[k["kFrac"]:k["kFrac"] + 4],
+                                  quantize.FRACS)
+    np.testing.assert_array_equal(c[k["kLog2P"]:k["kLog2P"] + 13],
+                                  np.float32(xpsy._LOG2_P))
+    np.testing.assert_array_equal(c[k["kExpK"]:k["kExpK"] + 8],
+                                  np.float32(xpsy._EXP_K))
+    assert (c[k["kC43"]], c[k["kLn2"]], c[k["kSqrt2"]]) == (
+        np.float32(quantize.C43), np.float32(xpsy.LN2),
+        np.float32(xpsy.SQRT2))
+
+
+def test_k4_static_shared_memory_fits_48_kb():
+    """x and amp_bin (swizzled, 4 KB each), the scan's two 4 KB buffers,
+    K2's code tables, len_sf, the constants, the band map, edges, amps, a
+    warp reduction slot each and the refine block's double-buffered bits."""
+    k = _cu_ints(RD_LOOP_CU)
+    nbmax, tuples, coeffs = 128, C.LONG_COEFFS // 4, C.LONG_COEFFS
+    used = (16 * tuples * 2 + 4 * 2 * coeffs + 4 * (81 + 2 * 33 * 33)
+            + 4 * k["kLenSf"] + 4 * k["kAllConsts"] + tuples
+            + 4 * (nbmax + 1) + 4 * nbmax + 4 * k["kWarps"]
+            + 4 * 2 * k["kWarps"])
+    assert used == 27392
+    assert used < record_pack.SMEM_LIMIT
+    assert k["kThreads"] == 128 and k["kBinsPerThread"] * 128 == coeffs
+
+
+def _touch(path, t):
+    with open(path, "w") as f:
+        f.write("// test\n")
+    os.utime(path, (t, t))
+
+
+def test_build_staleness_follows_included_headers(tmp_path, monkeypatch):
+    """A library is stale when its .cu or a csrc/*.cuh the .cu includes is
+    newer than the .so; a header it does not include does not count. No
+    nvcc is needed."""
+    csrc, out = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    out.mkdir()
+    monkeypatch.setattr(build, "CSRC", str(csrc))
+    monkeypatch.setattr(build, "BUILD", str(out))
+    (csrc / "quant_cost.cu").write_text(
+        '#include <cuda_runtime.h>\n#include "quant_cost_warp.cuh"\n')
+    for name in ("quant_cost_warp.cuh", "other.cuh"):
+        _touch(csrc / name, 1000)
+    os.utime(csrc / "quant_cost.cu", (1000, 1000))
+    assert build.inputs("quant_cost") == [
+        str(csrc / "quant_cost.cu"), str(csrc / "quant_cost_warp.cuh")]
+    assert build.stale("quant_cost")                 # no library yet
+    _touch(out / "libquant_cost.so", 2000)
+    assert not build.stale("quant_cost")
+    os.utime(csrc / "other.cuh", (3000, 3000))       # not included
+    assert not build.stale("quant_cost")
+    os.utime(csrc / "quant_cost_warp.cuh", (3000, 3000))
+    assert build.stale("quant_cost")                 # the header is newer
+    _touch(out / "libquant_cost.so", 4000)
+    os.utime(csrc / "quant_cost.cu", (5000, 5000))
+    assert build.stale("quant_cost")                 # the source is newer
+    # the repository's own sources: K2 and K4 include the shared header
+    monkeypatch.undo()
+    for name in ("quant_cost", "rd_loop"):
+        assert os.path.join(build.CSRC, "quant_cost_warp.cuh") in \
+            build.inputs(name)
+    assert build.inputs("probe_fma_contract") == [
+        os.path.join(build.CSRC, "probe_fma.cu")]

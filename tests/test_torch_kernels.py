@@ -10,7 +10,12 @@ equal the Pallas kernel run in interpret mode and the JAX XLA path
 Pallas counterpart; its plain version is held against the JAX
 `pack_records_device` in tests/test_torch_device_pack.py, and here (on a
 card) the kernel against it for stream orders that are in turn, shuffled
-or skipping, at record counts around a warp and a tile and up to 65536. Tests marked `cuda` need a card and
+or skipping, at record counts around a warp and a tile and up to 65536.
+K4 (ops/kernels/rd_loop.py) has no Pallas counterpart either; its plain
+version `rd.rd_loop_plain` is held against the JAX and spec RD loops in
+tests/test_torch_rd_loop.py, and here (on a card) the kernel against it at
+1, 31, 4096 and 8192 frames, all three rates, the RD corners and 20
+repeats. Tests marked `cuda` need a card and
 skip here; the machine with the card has no JAX, so this module imports
 JAX only inside the tests that compare against it, and there the tests
 run as `MRC_TESTS_KEEP_TPU=1 python -m pytest tests/test_torch_kernels.py
@@ -27,7 +32,7 @@ from mrcaudiocodec_tpu import xmath as jxmath
 from mrcaudiocodec_tpu_torch.ops import entropy, rd
 from mrcaudiocodec_tpu_torch.ops import device_pack
 from mrcaudiocodec_tpu_torch.ops.kernels import (fft_stages, quant_cost,
-                                                 record_pack)
+                                                 rd_loop, record_pack)
 
 torch.set_num_threads(1)
 
@@ -491,6 +496,125 @@ def test_encode_launches_record_pack_on_card(monkeypatch, row_frames):
     assert bs == packing.pack_stream(dec, nf, x.shape[0], cfg)
 
 
+def _rd_loop_inputs(rng, nf, fs, kind="music", device="cpu"):
+    """numpy inputs of K4 (x, allowed, budget_content, bt, gain0, bits0)
+    for nf frames: music-like spectra (a decaying envelope over the bins,
+    random loudness), allowed noise a fraction of each band's energy, and
+    budgets around a rate's mean; gain0/bits0 are the plain inner sweep's.
+    kind: "music", "starved" (16 kbps stereo budgets), "lavish" (320
+    kbps), "all_short", "silent_pad" (every third frame silent, budget 0),
+    "outer_max" (allowed noise a millionth). The inner sweep runs on
+    `device` (K2 on a card)."""
+    lay = JT.unified_layout(fs)
+    nb = lay["nb"]
+    bt = rng.integers(0, 5, nf).astype(np.int32)
+    if kind == "all_short":
+        bt[:] = JC.SHORT
+    env = np.exp(-np.arange(1024) / rng.uniform(60, 400, (nf, 1)))
+    x = (rng.standard_normal((nf, 1024)) * env
+         * 10.0 ** rng.uniform(-1, 3, (nf, 1))).astype(np.float32)
+    e_bin = x.astype(np.float64) ** 2
+    band = lay["bin_band"][bt]
+    energy = np.zeros((nf, nb))
+    np.add.at(energy, (np.arange(nf)[:, None], band), e_bin)
+    allowed = (energy * 10.0 ** rng.uniform(-2.5, 1, (nf, nb))).astype(
+        np.float32)
+    kbps = {"starved": 16, "lavish": 320}.get(kind, 128)
+    mean = kbps * 1000 * 1024 / fs / 2
+    budgets = (mean * rng.uniform(0.3, 2.0, nf)).astype(np.int64)
+    if kind == "outer_max":
+        allowed = (allowed * np.float32(1e-6)).astype(np.float32)
+    if kind == "silent_pad":
+        pad = np.arange(nf) % 3 == 1
+        x[pad], allowed[pad], budgets[pad], bt[pad] = 0.0, 0.0, 0, JC.LONG
+    bc = torch.from_numpy(budgets - JC.FRAME_LEN_BITS - 7).to(torch.int32)
+    xt, btt = torch.from_numpy(x).to(device), torch.from_numpy(bt).to(device)
+    gain0, bits0 = rd.inner_gain_search(
+        xt, torch.zeros((nf, nb), dtype=torch.int32, device=device),
+        bc.to(device), btt, fs,
+        torch.zeros((nf, 1024), dtype=torch.int32, device=device))
+    return (x, allowed, bc.numpy(), bt, gain0.cpu().numpy(),
+            bits0.cpu().numpy())
+
+
+def _rd_loop_card_vs_plain(args, fs, plain_on_cpu=True):
+    """K4 on the card == rd_loop_plain (on the CPU, or on the card for
+    large batches), q, amp, gain and bits. -> the plain run's counts."""
+    cpu = [torch.from_numpy(np.ascontiguousarray(a)) for a in args]
+    card = [t.cuda() for t in cpu]
+    before = rd_loop.launches
+    got = rd.rd_loop(*card, fs)
+    assert rd_loop.launches == before + 1
+    ref = cpu if plain_on_cpu else card
+    for g, w in zip(got, rd.rd_loop_plain(*ref, fs)):
+        assert torch.equal(g.cpu(), w.cpu())
+    return {k: v.cpu() for k, v in rd.loop_counts(*ref, fs).items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fs", [44100, 48000, 32000])
+@pytest.mark.parametrize("nf", [1, 31, 4096, 8192])
+def test_rd_loop_kernel_matches_plain_on_card(nf, fs):
+    """One frame, a ragged few, and the main path's chunk sizes (nb 88 at
+    44.1 and 48 kHz, 96 at 32 kHz)."""
+    _need_card()
+    args = _rd_loop_inputs(np.random.default_rng(nf + fs), nf, fs,
+                           device="cuda")
+    st = _rd_loop_card_vs_plain(args, fs, plain_on_cpu=nf <= 31)
+    if nf >= 4096:
+        assert st["outer"].max() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["starved", "lavish", "all_short",
+                                  "silent_pad", "outer_max"])
+def test_rd_loop_kernel_corners_on_card(kind):
+    _need_card()
+    fs = 48000 if kind == "starved" else 44100
+    args = _rd_loop_inputs(np.random.default_rng(len(kind)), 300, fs, kind,
+                           "cuda")
+    st = _rd_loop_card_vs_plain(args, fs)
+    if kind == "starved":
+        assert st["fallbacks"].sum() > 0
+    if kind == "outer_max":
+        assert (st["outer"] == JC.OUTER_MAX - 1).any()
+    if kind == "silent_pad":
+        assert (st["outer"][1::3] == 0).all()
+
+
+@pytest.mark.cuda
+def test_rd_loop_kernel_repeats_identical_on_card():
+    """20 launches on one input give the same outputs (the refine
+    exchange through shared memory and the scan's barriers)."""
+    _need_card()
+    fs = 44100
+    args = [torch.from_numpy(a).cuda() for a in
+            _rd_loop_inputs(np.random.default_rng(3), 4096, fs,
+                            device="cuda")]
+    first = rd.rd_loop(*args, fs)
+    for _ in range(20):
+        for g, w in zip(rd.rd_loop(*args, fs), first):
+            assert torch.equal(g, w)
+
+
+def test_rd_loop_kernel_rejects_cpu_and_bad_inputs():
+    rng = np.random.default_rng(1)
+    args = [torch.from_numpy(a) for a in _rd_loop_inputs(rng, 2, 44100)]
+    with pytest.raises(ValueError, match="want contiguous"):
+        rd_loop.rd_loop_kernel(*args, 44100)            # CPU tensors
+    bad = list(args)
+    bad[1] = args[1][:, :-1]                            # allowed [F, nb-1]
+    with pytest.raises(ValueError, match="want contiguous"):
+        rd_loop.check_inputs("k", *bad, JT.unified_layout(44100)["nb"],
+                             False)
+    bad = list(args)
+    bad[4] = args[4].long()                             # gain0 int64
+    with pytest.raises(ValueError, match="want contiguous"):
+        rd_loop.check_inputs("k", *bad, JT.unified_layout(44100)["nb"],
+                             False)
+    rd_loop.check_inputs("k", *args, JT.unified_layout(44100)["nb"], False)
+
+
 def _wrapper_inputs(name, device):
     """(dispatcher, kernel wrapper, plain version, args) of K1, K2 or K3 on
     small random inputs on `device`."""
@@ -507,6 +631,9 @@ def _wrapper_inputs(name, device):
                 (t(x), t(np.zeros((3, 1024), np.int32)),
                  t(np.full((3, 4), 60, np.int32)),
                  t(np.arange(3, dtype=np.int32)), 44100))
+    if name == "rd_loop":
+        return (rd.rd_loop, rd_loop.rd_loop_kernel, rd.rd_loop_plain,
+                tuple(t(a) for a in _rd_loop_inputs(rng, 3, 44100)) + (44100,))
     d = _decisions_for(5, 44100, 7)
     return (device_pack.pack_stream, record_pack.pack_stream_kernel,
             device_pack.pack_stream_plain,
@@ -515,13 +642,13 @@ def _wrapper_inputs(name, device):
 
 
 @pytest.mark.parametrize("name", ["fft_stages", "quant_cost",
-                                  "record_pack"])
+                                  "record_pack", "rd_loop"])
 def test_wrappers_launch_only_for_cuda_tensors(name, monkeypatch):
     """For CPU tensors the dispatcher takes the plain version and the
     kernel wrapper raises before its launch path (making the tensors'
     card current, the C entry, the launch count)."""
     mod = {"fft_stages": fft_stages, "quant_cost": quant_cost,
-           "record_pack": record_pack}[name]
+           "record_pack": record_pack, "rd_loop": rd_loop}[name]
 
     def reached(*a, **k):
         raise AssertionError("the launch path was reached")
@@ -540,7 +667,7 @@ def test_wrappers_launch_only_for_cuda_tensors(name, monkeypatch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["fft_stages", "quant_cost",
-                                  "record_pack"])
+                                  "record_pack", "rd_loop"])
 def test_wrappers_launch_on_the_tensors_card(name):
     """Tensors on cuda:0 while cuda:1 is current: the kernel runs on the
     tensors' card and equals its plain version (needs two cards)."""
