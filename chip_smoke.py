@@ -6,7 +6,8 @@
 Phases, in order; any failure raises, so the exit code is non-zero:
   1. card: name and power limit (nvidia-smi), CUDA version, capability 9.0
   2. build: the main path's four CUDA kernels from csrc/ (nvcc, one
-     process per source started together, -Xptxas -v per kernel)
+     process per source started together, -Xptxas -v per kernel); K4's
+     blocks resident an SM (the occupancy calculator), at least 7
   3. kernels against their plain PyTorch versions, bitwise:
      K1 fft_stages at all four FFT sizes (card kernel vs plain on the card
      and on the CPU); K2 quant_cost at G in {32, 8, 4, 1}, zero and random
@@ -24,11 +25,18 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      SHORT, with silent budget-0 pad frames, with allowed noise a
      millionth, so frames run every outer iteration), with how many frames
      reach each corner, on the CPU too for 256 rows of each, and 20
-     repeated launches giving the same outputs
+     repeated launches giving the same outputs; K4's |q|^(4/3) table
+     built on the card == built on the CPU
   4. on those captured inputs, each kernel's time (CUDA events, and the
      profiler's device time per launch) beside its plain version's, one
      PyTorch library call where one exists (torch.fft.fft for K1) and the
-     card's bound; the SASS instruction mix of K1-K4
+     card's bound; where K4's time goes: its device ms and bound (by this
+     design's op count and by one that quantizes again in every over-mask)
+     on the budget-0 pad rows alone, the
+     30 s chunk at its own and at a millionth of its allowed noise, the
+     time of one outer iteration from them, and the OUTER_MAX set cut to
+     132 ... 2586 rows (latency or issue); the SASS instruction mix of
+     K1-K4
   5. goldens g1-g6 encoded on the card (records built by K3) against their
      SHA-256 digests; each decoded on the card and on the CPU, PCM bitwise
      equal
@@ -337,7 +345,12 @@ def phase_build():
         "dynamic shared memory per warp of 128 B plus two staging buffers "
         "of cap rounded up to 4 B, warps per block from the cap "
         "(record_pack.warps_per_block); rd_loop: static shared memory "
-        "27392 B a block of one frame (ptxas above)")
+        "for one frame a block (ptxas above)")
+    from mrcaudiocodec_tpu_torch.ops.kernels import rd_loop
+    resident = rd_loop.blocks_per_sm()
+    log(f"[build] rd_loop: {resident} blocks (of 128 threads) resident an "
+        f"SM by the occupancy calculator; the design asks for 7")
+    check(resident >= 7, f"rd_loop holds {resident} blocks an SM, not 7")
 
 
 def phase_kernels(dev):
@@ -406,8 +419,8 @@ def phase_kernels(dev):
         for key, args in caps.items():
             if key[0] == "rd_loop":
                 log_rd_corners(f"{where} {key[1]}", args)
-    phase_kernels_rd_loop(dev, inputs, err)
-    return err, inputs
+    rd_sets = phase_kernels_rd_loop(dev, inputs, err)
+    return err, inputs, rd_sets
 
 
 def log_rd_corners(where, args):
@@ -455,7 +468,8 @@ def phase_kernels_rd_loop(dev, inputs, err):
     clip's chunk with every frame SHORT, with every third row a silent
     pad frame of budget 0, and with allowed noise a millionth (frames run
     every outer iteration); 256 rows of each on the CPU too; then 20
-    repeated launches on the 30 s chunk."""
+    repeated launches on the 30 s chunk. -> {name: K4's arguments} of the
+    30 s chunk and each corner set, for phase 4's k4_locate."""
     import torch
     from mrcaudiocodec_tpu_torch import config as C
     from mrcaudiocodec_tpu_torch.bench import make_clip
@@ -464,6 +478,11 @@ def phase_kernels_rd_loop(dev, inputs, err):
     from mrcaudiocodec_tpu_torch.ops import rd
     from mrcaudiocodec_tpu_torch.ops.kernels import rd_loop
     from mrcaudiocodec_tpu_torch.profiling import capture_inputs
+    card_table = rd_loop.pow43_table(dev)
+    ok = bits_equal(card_table, rd_loop.pow43_table("cpu"))
+    log(f"[kernels] rd_loop: the |q|^(4/3) table ({card_table.numel()} "
+        f"entries) built on the card == built on the CPU, bitwise: {ok}")
+    check(ok, "rd_loop's table differs between the card and the CPU")
     sets = {}
     for name, fs, rate in (("starved 16 kbps stereo 48 kHz", 48000, 16000),
                            ("lavish 320 kbps stereo 44.1 kHz", 44100,
@@ -517,6 +536,7 @@ def phase_kernels_rd_loop(dev, inputs, err):
     log(f"[kernels] rd_loop: 20 repeated launches on the 30 s chunk "
         f"({base[0].shape[0]} rows) identical to the first: {same}/20")
     check(same == 20, "rd_loop gave different outputs on a repeat")
+    return {"30 s chunk": base, **sets}
 
 
 def outputs(name, got, want):
@@ -970,7 +990,76 @@ def time_input(where, key, args):
     return r
 
 
-def phase_times(dev, inputs):
+def k4_locate(sets):
+    """Where K4's time goes, each set's device ms beside its bound (phase
+    4): (a) the budget-0 pad rows of the pad set alone, which exit at once
+    (set-up and the entry mask), the 30 s chunk at its own allowed noise
+    and at a millionth of it (every frame at OUTER_MAX), and from those
+    the time of one outer iteration of one frame, card-wide; (b) the
+    OUTER_MAX set cut to 132 ... 2586 rows, one to about twenty blocks an
+    SM. If 132 rows take about as long as 660, K4 waits on latency (too
+    few warps in flight); if the time grows with the rows, on issue. ->
+    the logged numbers."""
+    import torch
+    from mrcaudiocodec_tpu_torch import config as C
+    from mrcaudiocodec_tpu_torch.ops import rd
+    from mrcaudiocodec_tpu_torch.ops.kernels import rd_loop
+    from mrcaudiocodec_tpu_torch.profiling import (bound_ms, device_ms,
+                                                   kernel_bound, rd_loop_ops)
+
+    def cut(args, rows):
+        return tuple(a[rows].contiguous() if isinstance(a, torch.Tensor)
+                     else a for a in args)
+
+    def measure(name, args):
+        n = args[0].shape[0]
+        ms = device_ms(lambda: rd_loop.rd_loop_kernel(*args),
+                       match="rd_loop_kernel")
+        b, o, rate = kernel_bound(("rd_loop", (n,)), args)
+        t, by = bound_ms([(b, o, rate)])
+        tq, _ = bound_ms([(b, rd_loop_ops(args, kept=False), rate)])
+        outer = int(rd.loop_counts(*args)["outer"].sum())
+        r = {"rows": n, "outer_iterations": outer, "device_ms": ms,
+             "bound_ms": t, "bound_by": by, "bound_ms_requantize": tq}
+        x = "not measured" if ms is None else f"{ms / t:.2f}, {ms / tq:.2f}"
+        log(f"[k4 time] {name}: {n} rows, {outer} outer iterations, "
+            f"device {ms} ms, bound {t:.5f} ms ({by}; requantizing count "
+            f"{tq:.5f} ms), x bound (this count, requantizing) {x}")
+        return r
+
+    pad_set = sets["30 s chunk, every third row a silent budget-0 pad frame"]
+    pads = pad_set[2] == -C.FRAME_LEN_BITS - 7
+    om = sets["30 s chunk, allowed noise a millionth"]
+    out = {"pad rows": measure("the pad rows alone (set-up and the entry "
+                               "mask)", cut(pad_set, pads)),
+           "own noise": measure("the 30 s chunk at its own allowed noise",
+                                sets["30 s chunk"]),
+           "OUTER_MAX": measure("the 30 s chunk, allowed noise a "
+                                "millionth (every frame at OUTER_MAX)", om)}
+    p, o, own = out["pad rows"], out["OUTER_MAX"], out["own noise"]
+    if None not in (p["device_ms"], o["device_ms"], own["device_ms"]):
+        entry = p["device_ms"] / p["rows"]
+        it = (o["device_ms"] - entry * o["rows"]) / o["outer_iterations"]
+        out["per_row_entry_ms"], out["per_iteration_ms"] = entry, it
+        model = entry * own["rows"] + it * own["outer_iterations"]
+        log(f"[k4 time] card-wide: set-up and entry {entry * 1e3:.4f} us a "
+            f"row, one outer iteration {it * 1e3:.4f} us a row; so the own-"
+            f"noise chunk would take {model:.4f} ms against "
+            f"{own['device_ms']:.4f} measured")
+    out["rows"] = {}
+    for n in (132, 264, 528, 660, 1320, om[0].shape[0]):
+        out["rows"][n] = measure(f"OUTER_MAX set, first {n} rows",
+                                 cut(om, slice(0, n)))
+    base = out["rows"][132]["device_ms"]
+    if base is not None:
+        log("[k4 time] OUTER_MAX set, device ms over 132 rows' as the rows "
+            "grow: " + json.dumps({n: None if r["device_ms"] is None else
+                                   round(r["device_ms"] / base, 3)
+                                   for n, r in out["rows"].items()}))
+    return out
+
+
+def phase_times(dev, inputs, rd_sets):
     """Kernel, plain and library times on the main path's own inputs
     (main_path_inputs), beside the card's bound for the same work. The
     kernels line takes the 30 s clip's encode: K1 summed over the four FFT
@@ -980,7 +1069,8 @@ def phase_times(dev, inputs):
     decode's FFTs, the 64-clip batch's chunk of 8192 frame rows) is timed
     too and kept under by_shape. Event ms hold the host's launch interval
     where a kernel is short (and K3's read of its status); device ms (the
-    profiler's kernel time per launch) do not."""
+    profiler's kernel time per launch) do not. K4 is also timed on phase
+    3's corner sets (k4_locate)."""
     from mrcaudiocodec_tpu_torch.profiling import F32_OPS_PER_S, bound_ms
     out = {}
     for name in KERNELS:
@@ -1017,6 +1107,7 @@ def phase_times(dev, inputs):
             line["library_ms"] = None
         line["by_shape"] = by_shape
         out[name] = line
+    out["rd_loop"]["locate"] = k4_locate(rd_sets)
     log_instruction_mix()
     return out
 
@@ -1040,8 +1131,8 @@ def log_instruction_mix():
     class: the static counts the device times are read against (K1's
     kernels are straight-line code, K2's gain loop is unrolled over a
     lane's 8 tuples, 32 bins, K3's over a lane's 16 pairs, twice; K4
-    holds K2's routine twice, a refine candidate's and the fallback's,
-    and the over-mask's 8 bins a thread unrolled)."""
+    holds its form of K2's routine once, for the refine candidates and the
+    fallback, the entry's quantize and the over-mask's tuple loop)."""
     from mrcaudiocodec_tpu_torch.ops.kernels import build
     from mrcaudiocodec_tpu_torch.probes import fma_probe
     for lib in build.MAIN:
@@ -1804,9 +1895,9 @@ def main() -> int:
     dev = "cuda"
     smi = phase_card()
     phase_build()
-    errs, inputs = phase_kernels(dev)
-    times = phase_times(dev, inputs)
-    del inputs                  # out of the peak memory of later phases
+    errs, inputs, rd_sets = phase_kernels(dev)
+    times = phase_times(dev, inputs, rd_sets)
+    del inputs, rd_sets         # out of the peak memory of later phases
     torch.cuda.empty_cache()
     phase_goldens(dev)
     phase_card_vs_cpu(dev)

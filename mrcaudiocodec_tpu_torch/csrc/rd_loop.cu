@@ -20,45 +20,69 @@
 //             (bits <= budget) candidate of the first block that has one;
 //             none: GAIN_MAX and its own bits
 //     q = quantize(x, gain); over = over_mask(q)
-//   over_mask: xhat = dequantize(q, e) (xlog2 / xexp2 op for op as
-//   xpsy.py's, mag == 0 -> 0, the clamp at 1, the sign by q < 0), d = x -
-//   xhat, the band sums of d * d by the pinned segmented scan (xpsy.seg_scan
-//   over the frame family's band edges: p[i] += p[i - s] where i - s >=
-//   seg_start(i), s = 1, 2, 4, ... below the widest band; a band reads its
-//   last bin, a zero-width band 0); over = noise > allowed & width > 0 &
-//   amp < AMP_MAX.
+//   over_mask: xhat = dequantize(q, e) (|q|^(4/3) as xlog2 / xexp2 give it,
+//   0 at q = 0, times the step, the sign by q < 0), d = x - xhat, the band
+//   sums of d * d by the pinned segmented scan (xpsy.seg_scan over the frame
+//   family's band edges: p[i] += p[i - s] where i - s >= seg_start(i), s =
+//   1, 2, 4, ... below the widest band; a band reads its last bin, a
+//   zero-width band 0); over = noise > allowed & width > 0 & amp < AMP_MAX.
 // Out: q [F, 1024], amp [F, nb], gain [F], bits [F], int32. Every f32 op is
 // a single correctly-rounded __f*_rn op in the order of the torch DAG, and
 // the library is built with --fmad=false: no contraction, no flush to zero.
 //
-// Bound on this card: f32 ALU work, as K2's. A refine candidate costs what a
-// K2 task does (54 f32 ops a bin, held by the integer work beside them);
-// each over-mask adds a quantize (54 ops a bin), a dequantize (~53), d and
-// d * d, and one add a bin per scan stage (8 long, 6 short at 44.1 kHz).
-// The candidates and outer iterations depend on the data: profiling's bound
-// counts what rd_loop_plain reaches on the same input. A frame's loop is a
-// chain of dependent steps with a barrier each, so what also bounds it is
-// latency: the card needs many frames in flight.
+// What bounds it. A refine candidate costs what a K2 task does (54 f32 ops
+// a bin, held by the integer work beside them, as K2 is); the candidates and
+// outer iterations depend on the data, and profiling's bound counts what
+// rd_loop_plain reaches on the same input (profiling.rd_loop_ops). The
+// first design (one block of 4 warps a frame, 96 registers, 5 blocks an
+// SM) was measured first (chip_smoke.py phase 4, k4_locate): on the
+// 30 s chunk's rows with every frame at OUTER_MAX, one block an SM took
+// 0.103 ms, two 0.108, four 0.145, five (one wave of 660 frames) 0.167, and
+// 2586 rows 0.636 ms, in proportion to the waves. So across waves it was
+// bound by issue, but inside a wave latency still showed: five blocks an SM
+// ran only 3.1 times the work of one in the same time. A block's own chain
+// was long: each refine warp quantizes all 1024 bins (32 a lane, in turn),
+// then the over-mask quantized and dequantized the 1024 bins again (xlog2
+// and xexp2, about 93 f32 ops a bin) and scanned them with one block
+// barrier a stage. This design cuts both the work and the chain, and keeps
+// 7 blocks an SM (6 ran 4% slower, 8 with spills no faster); what is left
+// is the refine's integer-bound quantize, about three quarters of an outer
+// iteration, and the latency of each frame's chain of iterations, which
+// shows in the last wave.
 //
-// Design: one block of 4 warps a frame; no atomic, no host sync.
-//  * Set-up stages the frame's x (swizzled float4, as K2), the code tables,
-//    the tuple -> band map and the band edges of the frame's block type, and
-//    keeps x, q of the thread's 8 bins (t + 128 k) in registers. Thread b <
-//    nb owns band b: its allowed noise, amp, width and last bin. The widest
-//    band (a warp max) sets the scan's stages.
-//  * Refine: warp w takes candidate w of each block of REFINE_BLOCK = 4, so
-//    K2's warp routine (quant_cost_warp.cuh) runs as it is on the staged x
-//    and amp_bin; lane 0 writes its bits to a double-buffered slot, and
-//    after one barrier every thread reads the 4 and takes the same first
-//    fit, so the exit is block-uniform. The fallback's payload at GAIN_MAX
-//    is computed by every warp alike (no barrier).
-//  * Over-mask: each thread quantizes, dequantizes and squares its 8 bins
-//    into shared memory; the scan runs double-buffered over the 1024 bins,
-//    one barrier a stage; thread b reads band b's sum.
-//  * The loop test is __syncthreads_or of the band flags, so every exit is
+// Design: one block of 4 warps a frame; no atomic, no host sync; 3 block
+// barriers an outer iteration (the exit test, the amps, each refine block).
+//  * Set-up stages the frame's x (swizzled float4, as K2), the code tables
+//    (each thread's loads unrolled, so they are in flight together), the
+//    tuple -> band map, each tuple's offset in its band and its amp (one
+//    byte each), the band edges, allowed noise, amps and over flags. The
+//    frame's bins are cut into 4 warp regions at the first band edge at or
+//    above 256 w, so that no band crosses a region.
+//  * Refine: warp w takes candidate w of each block of REFINE_BLOCK = 4 on
+//    K2's routine (quant_cost_warp.cuh) in a K4 form that reads a tuple's
+//    amp as one byte and keeps the candidate's magnitudes in its own slot
+//    of shared memory (1024 uint16); lane 0 writes its payload, and after
+//    one barrier every thread adds the fixed bits and takes the same first
+//    fit, so the exit is block-uniform. The GAIN_MAX fallback is computed
+//    once, by warp 0, which keeps its magnitudes in slot 0.
+//  * Over-mask, warp by warp over its own region, with no block barrier:
+//    the winner's kept magnitudes (only the entry quantizes, at gain0 with
+//    amp 0), |q|^(4/3) read from a 4096-entry table through the read-only
+//    cache (quantize.dequantize's chain at step 1, built by the wrapper with
+//    the port's own ops: the same bits by construction), times the step,
+//    the sign from x; d * d a tuple as a float4; then the pinned scan in
+//    place, stage by stage up to the region's widest band, 32 tuples at a
+//    time from the region's top down (each lane reads its tuple and the
+//    shifted one, __syncwarp, writes; from s = 4 on a tuple that adds
+//    nothing is neither read nor written), the adds of each stage those of
+//    xpsy.seg_scan; the lanes then set the region's band flags.
+//  * The loop test is __syncthreads_or of the flags, so every exit is
 //    block-uniform and no barrier diverges. No integer division or modulo
 //    by a variable (it would compile to F2I.FTZ). Static shared memory
-//    about 27 KB a block.
+//    28120 B a block; __launch_bounds__ asks for 7 blocks (28 warps) an SM,
+//    so at most 72 registers a thread; the region bounds and the band
+//    before's amp live in shared memory, so that no register holds them
+//    through the refine.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -71,7 +95,7 @@ using namespace quant_warp;
 
 constexpr int kWarps = 4;                  // = REFINE_BLOCK
 constexpr int kThreads = 32 * kWarps;
-constexpr int kBinsPerThread = kCoeffs / kThreads;
+constexpr int kMinBlocks = 7;              // resident blocks an SM
 constexpr int kRefineBlocks = 4;           // (REFINE_WINDOW + 1) / 4
 constexpr int kOuterMax = 8;               // config.OUTER_MAX
 constexpr int kAmpStep = 2;                // config.AMP_STEP
@@ -81,89 +105,188 @@ constexpr int kFixedBits = 3 + 8;          // BLOCK_TYPE_BITS + GAIN_BITS
 constexpr int kCbBits = 2;                 // config.CB_BITS
 constexpr int kSfDeltaMax = 60;            // config.SF_DELTA_MAX
 constexpr int kLenSf = 2 * kSfDeltaMax + 1;
-// rd_loop.consts(): K2's kConsts, then these offsets
-constexpr int kFrac = 11, kLog2P = 15, kExpK = 28, kC43 = 36, kLn2 = 37,
-              kSqrt2 = 38, kAllConsts = 39;
+constexpr int kRegion = kCoeffs / kWarps;  // a warp region's nominal bins
+// rd_loop.consts(): K2's kConsts, then the step fractions
+constexpr int kFrac = 11, kAllConsts = 15;
 
-// xpsy.xlog2: exponent by bitcast, mantissa in [sqrt2/2, sqrt2), degree-12
-// Horner in t = m - 1
-__device__ __forceinline__ float xlog2(float x, const float* c) {
-    const int bits = __float_as_int(x);
-    int e = (bits >> 23) - 127;
-    float m = __int_as_float((bits & 0x007FFFFF) | 0x3F800000);
-    const bool big = m >= c[kSqrt2];
-    m = big ? __fmul_rn(m, 0.5f) : m;
-    e = big ? e + 1 : e;
-    const float t = __fsub_rn(m, 1.0f);
-    const float* L = c + kLog2P;
-    float p = __fadd_rn(__fmul_rn(L[12], t), L[11]);
-#pragma unroll
-    for (int i = 10; i >= 0; --i) p = __fadd_rn(__fmul_rn(p, t), L[i]);
-    return __fadd_rn((float)e, p);
+// tuple u's slot in a warp's kept magnitudes: x's swizzle, bit 0 flipped
+// in the upper half of each 64 tuples, so that the refine's 8-byte stores
+// (lane l, step s: tuple 8l + s) and the over-mask's reads of consecutive
+// tuples are free of bank conflicts
+__device__ __forceinline__ int kslot(int u) {
+    return swz(u) ^ ((u >> 6) & 1);
 }
 
-// xpsy.xexp2: k = round half to even, f = x - k, Taylor-Horner of f * ln2,
-// scaled by 2^k through the exponent bits
-__device__ __forceinline__ float xexp2(float x, const float* c) {
-    int k = (int)rintf(x);
-    k = k < -126 ? -126 : (k > 126 ? 126 : k);
-    const float f = __fsub_rn(x, (float)k);
-    const float v = __fmul_rn(f, c[kLn2]);
-    const float* K = c + kExpK;
-    float p = __fadd_rn(__fmul_rn(K[0], v), K[1]);
+// K2's tuple_values for a tuple of one amp, keeping its 4 magnitudes
+__device__ __forceinline__ Sums k4_tuple(float4 xv, int amp, int gain,
+                                         const float* P, float magic,
+                                         const float* s_consts,
+                                         const int* s_small, const int* s_em,
+                                         const int* s_sf, uint2& keep) {
+    const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
+    const float inv = inv_step_of(gain, amp, s_consts);
+    int v[4], m[4], suffix = 0;
 #pragma unroll
-    for (int i = 2; i < 8; ++i) p = __fadd_rn(__fmul_rn(p, v), K[i]);
-    return __fmul_rn(p, __int_as_float((k + 127) << 23));
-}
-
-// quantize.dequantize of one bin at exponent e
-__device__ __forceinline__ float dequant(int q, int e, const float* c) {
-    const float mag = (float)(q < 0 ? -q : q);
-    float p43 = xexp2(__fmul_rn(c[kC43], xlog2(fmaxf(mag, 1.0f), c)), c);
-    p43 = mag == 0.0f ? 0.0f : p43;
-    const int d = e - 128;
-    const float step = __fmul_rn(c[kFrac + (d & 3)],
-                                 __int_as_float(((d >> 2) + 127) << 23));
-    const float val = __fmul_rn(p43, step);
-    return q < 0 ? -val : val;
-}
-
-// The thread's 8 bins quantized at `gain` into qr, then the over flag of
-// band tid: dequantize, d * d into s_p[0], the pinned scan, band tid's sum.
-// Called by every thread (barriers inside; maxw is block-uniform).
-__device__ __forceinline__ bool quantize_over(
-    const float (&xr)[kBinsPerThread], int (&qr)[kBinsPerThread], int gain,
-    const int* s_ab_bin, float (*s_p)[kCoeffs], const unsigned char* s_band,
-    const int* s_edge, int maxw, const float* P, float magic,
-    const float* c, bool band_over_ok, int end_b, float allowed_b) {
-    const int tid = threadIdx.x;
-#pragma unroll
-    for (int k = 0; k < kBinsPerThread; ++k) {
-        const int i = tid + kThreads * k;
-        const int e = exponent_of(gain, s_ab_bin[4 * swz(i >> 2) + (i & 3)]);
-        const int mag = quant_mag(xr[k], inv_step(e, c), P, magic);
-        qr[k] = xr[k] < 0.0f ? -mag : mag;
-        const float d = __fsub_rn(xr[k], dequant(qr[k], e, c));
-        s_p[0][i] = __fmul_rn(d, d);
+    for (int k = 0; k < 4; ++k) {
+        m[k] = quant_mag(xs[k], inv, P, magic);
+        const int m16 = m[k] < 16 ? m[k] : 16;
+        v[k] = xs[k] < 0.0f ? 16 - m16 : 16 + m16;
+        suffix += esc_bits(m[k]);
     }
-    __syncthreads();
-    int cur = 0;
-    for (int s = 1; s < maxw; s <<= 1) {
+    keep = make_uint2(m[0] | m[1] << 16, m[2] | m[3] << 16);
+    const int i01 = v[0] * 33 + v[1], i23 = v[2] * 33 + v[3];
+    const unsigned sf01 = s_sf[i01], sf23 = s_sf[i23];
+    return {s_small[(sf01 & 15u) * 9 + (sf23 & 15u)],
+            s_em[i01] + s_em[i23] + suffix, (sf01 | sf23) >> 4};
+}
+
+// K2's warp_payload with a byte of amp a tuple (s_tamp, tuple order) and
+// the magnitudes kept in `keep` (at kslot); the same sums in the same order
+__device__ __forceinline__ int k4_payload(const float4* s_x,
+                                          const unsigned char* s_tamp,
+                                          uint2* keep, const LaneBands& lb,
+                                          int gain, int lane,
+                                          const float* s_consts,
+                                          const int* s_small, const int* s_em,
+                                          const int* s_sf) {
+    float P[6];
 #pragma unroll
-        for (int k = 0; k < kBinsPerThread; ++k) {
-            const int i = tid + kThreads * k;
-            const float v = s_p[cur][i];
-            s_p[cur ^ 1][i] = i - s >= s_edge[s_band[i >> 2]]
-                                  ? __fadd_rn(v, s_p[cur][i - s]) : v;
+    for (int i = 0; i < 6; ++i) P[i] = s_consts[i];
+    const float magic = s_consts[10];
+    const Sums zero = {0, 0, 0u};
+    Sums run = zero, head = zero;
+    bool first = true;
+    int cost = 0;
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+        const int u = 8 * lane + s;
+        uint2 m;
+        run = run + k4_tuple(s_x[8 * lane + (s ^ (lane & 7))], s_tamp[u],
+                             gain, P, magic, s_consts, s_small, s_em, s_sf,
+                             m);
+        keep[kslot(u)] = m;
+        if (s < 7) {
+            const bool end = (lb.brk >> (s + 1)) & 1u;
+            cost += end && !first ? band_cost(run) : 0;
+            head = pick(end && first, run, head);
+            first = first && !end;
+            run = pick(end, zero, run);
         }
-        __syncthreads();
-        cur ^= 1;
     }
-    // band_over_ok: the thread owns a real band whose amp is below AMP_MAX
-    return band_over_ok && s_p[cur][end_b] > allowed_b;
+#pragma unroll
+    for (int r = 0; r < 5; ++r)
+        run = pick((lb.seg >> r) & 1u, run + shfl_up(run, 1 << r), run);
+    const Sums before = shfl_up(run, 1);
+    cost += first ? 0 : band_cost(head + pick(lb.cont_in, before, zero));
+    cost += lb.cont_out ? 0 : band_cost(run);
+    return __reduce_add_sync(kFull, cost);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// (x - dequantize(q))^2 of one bin, q = sign(x) * mag (q < 0 only where
+// x < 0 and mag > 0)
+__device__ __forceinline__ float sq_err(float x, unsigned mag, float step,
+                                        const float* __restrict__ pow43) {
+    const float val = __fmul_rn(__ldg(pow43 + mag), step);
+    const float xhat = x < 0.0f && mag != 0u ? -val : val;
+    const float d = __fsub_rn(x, xhat);
+    return __fmul_rn(d, d);
+}
+
+// The over flags of warp w's region's bands into s_over -> whether any is
+// set in this lane. The region (read from shared memory, so that it holds
+// no register through the refine): tuples [s_cut[w] / 4, s_cut[w + 1] / 4),
+// the bands [s_bfirst[w], s_bfirst[w + 1]) that lie in it, its widest band
+// s_maxw[w] in bins. kEntry: quantize at gain with amp 0 and keep the
+// magnitudes; else read them from `keep`.
+template <bool kEntry>
+__device__ __forceinline__ bool region_over(
+    int w, int lane, int gain, const int* s_cut, const int* s_bfirst,
+    const int* s_maxw, const float4* s_x, const unsigned char* s_tamp,
+    uint2* keep, float4* s_p, const unsigned char* s_toff, const int* s_edge,
+    const float* s_allowed, unsigned char* s_over, const float* c,
+    const float* __restrict__ pow43) {
+    const int t0 = s_cut[w] >> 2, t1 = s_cut[w + 1] >> 2;
+    for (int u = t0 + lane; u < t1; u += 32) {
+        const float4 xv = s_x[swz(u)];
+        const int e = exponent_of(gain, s_tamp[u]);
+        uint2 m;
+        if (kEntry) {
+            float P[6];
+#pragma unroll
+            for (int i = 0; i < 6; ++i) P[i] = c[i];
+            const float inv = inv_step(e, c);
+            m = make_uint2(quant_mag(xv.x, inv, P, c[10])
+                               | quant_mag(xv.y, inv, P, c[10]) << 16,
+                           quant_mag(xv.z, inv, P, c[10])
+                               | quant_mag(xv.w, inv, P, c[10]) << 16);
+            keep[kslot(u)] = m;
+        } else {
+            m = keep[kslot(u)];
+        }
+        const int d = e - 128;
+        const float step = __fmul_rn(c[kFrac + (d & 3)],
+                                     __int_as_float(((d >> 2) + 127) << 23));
+        s_p[u] = make_float4(sq_err(xv.x, m.x & 0xFFFFu, step, pow43),
+                             sq_err(xv.y, m.x >> 16, step, pow43),
+                             sq_err(xv.z, m.y & 0xFFFFu, step, pow43),
+                             sq_err(xv.w, m.y >> 16, step, pow43));
+    }
+    __syncwarp();
+    // the pinned scan in place: stage s adds p[i - s] where the bin's offset
+    // in its band is at least s; a tuple's 4 bins are one float4, so below
+    // s = 4 the shifted bins lie in the tuple before, from s = 4 on whole
+    // tuples shift by s / 4. Chunks of 32 tuples from the top down, so a
+    // chunk's reads come before any write of the bins they read.
+    const int top = t0 + ((t1 - t0 - 1) & ~31), maxw = s_maxw[w];
+    for (int s = 1; s < maxw; s <<= 1) {
+        const int st = s < 4 ? 1 : s >> 2;
+        for (int base = top; base >= t0; base -= 32) {
+            const int u = base + lane;
+            const bool in = u < t1;
+            const bool take = in && s_toff[u] >= st;
+            float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f), sh = v;
+            if (take || (in && s < 4)) v = s_p[u];
+            if (take) sh = s_p[u - st];
+            __syncwarp();
+            if (s >= 4) {                  // a tuple that takes nothing stays
+                if (take)
+                    s_p[u] = make_float4(
+                        __fadd_rn(v.x, sh.x), __fadd_rn(v.y, sh.y),
+                        __fadd_rn(v.z, sh.z), __fadd_rn(v.w, sh.w));
+            } else if (in) {
+                float4 o;
+                if (s == 1) {
+                    o.x = take ? __fadd_rn(v.x, sh.w) : v.x;
+                    o.y = __fadd_rn(v.y, v.x);
+                    o.z = __fadd_rn(v.z, v.y);
+                    o.w = __fadd_rn(v.w, v.z);
+                } else {
+                    o.x = take ? __fadd_rn(v.x, sh.z) : v.x;
+                    o.y = take ? __fadd_rn(v.y, sh.w) : v.y;
+                    o.z = __fadd_rn(v.z, v.x);
+                    o.w = __fadd_rn(v.w, v.y);
+                }
+                s_p[u] = o;
+            }
+        }
+        __syncwarp();
+    }
+    // band b's noise is its last bin's sum
+    const float* p = reinterpret_cast<const float*>(s_p);
+    bool any = false;
+    for (int b = s_bfirst[w] + lane; b < s_bfirst[w + 1]; b += 32) {
+        const int lo = s_edge[b], hi = s_edge[b + 1];
+        if (hi > lo) {
+            const bool o =
+                p[hi - 1] > s_allowed[b] && s_tamp[lo >> 2] < kAmpMax;
+            s_over[b] = (unsigned char)o;
+            any = any || o;
+        }
+    }
+    return any;
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 rd_loop_kernel(const float* __restrict__ x, const float* __restrict__ allowed,
                const int* __restrict__ budget, const int* __restrict__ bt,
                const int* __restrict__ gain0, const int* __restrict__ bits0,
@@ -172,132 +295,178 @@ rd_loop_kernel(const float* __restrict__ x, const float* __restrict__ allowed,
                const int* __restrict__ pair_em,
                const int* __restrict__ pair_sf,
                const int* __restrict__ len_sf,
-               const float* __restrict__ consts, int* __restrict__ q_out,
+               const float* __restrict__ consts,
+               const float* __restrict__ pow43, int* __restrict__ q_out,
                int* __restrict__ amp_out, int* __restrict__ gain_out,
                int* __restrict__ bits_out, int nb) {
     __shared__ float4 s_x[kTuples];            // swizzled
-    __shared__ int4 s_amp[kTuples];            // amp_bin, swizzled
-    __shared__ float s_p[2][kCoeffs];          // the scan's two buffers
+    __shared__ uint2 s_keep[kWarps][kTuples];  // kept magnitudes, at kslot
+    __shared__ float4 s_p[kTuples];            // d * d, scanned in place
     __shared__ int s_small[81];
     __shared__ int s_em[kPairs];
     __shared__ int s_sf[kPairs];
     __shared__ int s_lsf[kLenSf];
     __shared__ float s_consts[kAllConsts];
-    __shared__ unsigned char s_band[kTuples];  // tuple -> band
+    __shared__ float s_allowed[kNbMax];
     __shared__ int s_edge[kNbMax + 1];         // band edges in bins
-    __shared__ int s_ab[kNbMax];               // amp of each band
-    __shared__ int s_red[kWarps];
-    __shared__ int s_bits[2][kWarps];          // a refine block's bits
+    __shared__ unsigned char s_band[kTuples];  // tuple -> band
+    __shared__ unsigned char s_toff[kTuples];  // tuple's offset in its band
+    __shared__ unsigned char s_tamp[kTuples];  // tuple's amp
+    __shared__ unsigned char s_over[kNbMax];   // band over its allowed noise
+    __shared__ unsigned char s_ab[kNbMax];     // band's amp
+    __shared__ int s_cut[kWarps + 1];          // regions' first bin
+    __shared__ int s_bfirst[kWarps + 1];       // regions' first band
+    __shared__ int s_maxw[kWarps];             // regions' widest band
+    __shared__ int s_red[kWarps];              // sf bits a warp
+    __shared__ int s_bits[2][kWarps];          // a refine block's payloads
 
     const int tid = threadIdx.x;
     const int lane = tid & 31, warp = tid >> 5;
     const long long f = blockIdx.x;
-    for (int i = tid; i < 81; i += kThreads) s_small[i] = len_small[i];
-    for (int i = tid; i < kPairs; i += kThreads) {
-        s_em[i] = pair_em[i];
-        s_sf[i] = pair_sf[i];
+    // the copies unrolled, so that a thread's loads are all in flight at once
+    if (tid < 81) s_small[tid] = len_small[tid];
+#pragma unroll
+    for (int k = 0; k < (kPairs + kThreads - 1) / kThreads; ++k) {
+        const int i = tid + kThreads * k;
+        if (i < kPairs) {
+            s_em[i] = pair_em[i];
+            s_sf[i] = pair_sf[i];
+        }
     }
-    for (int i = tid; i < kLenSf; i += kThreads) s_lsf[i] = len_sf[i];
+    if (tid < kLenSf) s_lsf[tid] = len_sf[tid];
     if (tid < kAllConsts) s_consts[tid] = consts[tid];
     const float4* xf = reinterpret_cast<const float4*>(x + f * kCoeffs);
-    for (int i = tid; i < kTuples; i += kThreads) {
+#pragma unroll
+    for (int k = 0; k < kTuples / kThreads; ++k) {
+        const int i = tid + kThreads * k;
         s_x[swz(i)] = xf[i];
-        s_amp[i] = make_int4(0, 0, 0, 0);
+        s_tamp[i] = 0;
     }
     const int* te = band_tuples + bt[f] * (nb + 1);
-    for (int b = tid; b < nb; b += kThreads)
-        for (int u = te[b]; u < te[b + 1]; ++u) s_band[u] = (unsigned char)b;
+    for (int b = tid; b < nb; b += kThreads) {
+        for (int u = te[b]; u < te[b + 1]; ++u) {
+            s_band[u] = (unsigned char)b;
+            s_toff[u] = (unsigned char)(u - te[b]);
+        }
+        s_allowed[b] = allowed[f * nb + b];
+        s_over[b] = 0;
+        s_ab[b] = 0;
+    }
     for (int b = tid; b <= nb; b += kThreads) s_edge[b] = 4 * te[b];
-    float xr[kBinsPerThread];
-    int qr[kBinsPerThread];
-#pragma unroll
-    for (int k = 0; k < kBinsPerThread; ++k)
-        xr[k] = x[f * kCoeffs + tid + kThreads * k];
-    const bool has_band = tid < nb;
-    const float allowed_b = has_band ? allowed[f * nb + tid] : 0.0f;
     const int budget_f = budget[f];
     __syncthreads();
 
-    // band tid's facts, the real bands' count and the widest band
-    const int width_b = has_band ? s_edge[tid + 1] - s_edge[tid] : 0;
-    const bool real_b = width_b > 0;
-    const bool real_prev =
-        has_band && tid > 0 && s_edge[tid] > s_edge[tid - 1];
-    const int end_b = real_b ? s_edge[tid + 1] - 1 : 0;
-    const int wmax = __reduce_max_sync(kFull, width_b);
-    if (lane == 0) s_red[warp] = wmax;
+    // the regions: cut at the first band edge at or above 256 w
+    for (int b = tid; b <= nb; b += kThreads) {
+        const int e = s_edge[b], ep = b > 0 ? s_edge[b - 1] : -1;
+#pragma unroll
+        for (int w = 1; w < kWarps; ++w) {
+            if (e >= kRegion * w && ep < kRegion * w) {
+                s_cut[w] = e;
+                s_bfirst[w] = b;
+            }
+        }
+    }
+    if (tid == 0) {
+        s_cut[0] = 0;
+        s_bfirst[0] = 0;
+        s_cut[kWarps] = kCoeffs;
+        s_bfirst[kWarps] = nb;
+    }
+    // band tid's facts and the real bands' count
+    const bool has_band = tid < nb;
+    const bool real_b = has_band && s_edge[tid + 1] > s_edge[tid];
     const int nreal = __syncthreads_count(real_b);
-    int maxw = s_red[0];
-#pragma unroll
-    for (int w = 1; w < kWarps; ++w) maxw = s_red[w] > maxw ? s_red[w] : maxw;
+    int mw = 0;
+    for (int b = s_bfirst[warp] + lane; b < s_bfirst[warp + 1]; b += 32) {
+        const int wb = s_edge[b + 1] - s_edge[b];
+        mw = wb > mw ? wb : mw;
+    }
+    mw = __reduce_max_sync(kFull, mw);
+    if (lane == 0) s_maxw[warp] = mw;
     const LaneBands lb = lane_bands(s_band, lane);
-    float P[6];
-#pragma unroll
-    for (int i = 0; i < 6; ++i) P[i] = s_consts[i];
-    const float magic = s_consts[10];
-    const int* s_ab_bin = reinterpret_cast<const int*>(s_amp);
+    __syncwarp();
 
     // entry: amp = 0, the inner sweep's gain
-    int gain = gain0[f], bits = bits0[f];
-    int amp_b = 0;
-    bool over = quantize_over(xr, qr, gain, s_ab_bin, s_p, s_band, s_edge,
-                              maxw, P, magic, s_consts, real_b, end_b,
-                              allowed_b);
+    int gain = gain0[f], bits = bits0[f], win = 0;
+    int amp_b = 0;                          // band tid's amp
+    bool any = region_over<true>(warp, lane, gain, s_cut, s_bfirst, s_maxw,
+                                 s_x, s_tamp, s_keep[0], s_p, s_toff, s_edge,
+                                 s_allowed, s_over, s_consts, pow43);
     for (int it = 1; it < kOuterMax; ++it) {
-        if (!__syncthreads_or(over)) break;
-        amp_b += over ? kAmpStep : 0;
-        amp_b = amp_b < kAmpMax ? amp_b : kAmpMax;
-        if (has_band) s_ab[tid] = amp_b;
-        __syncthreads();
-        for (int u = tid; u < kTuples; u += kThreads) {
-            const int a = s_ab[s_band[u]];
-            s_amp[swz(u)] = make_int4(a, a, a, a);
+        if (!__syncthreads_or(any)) break;
+        // amp += AMP_STEP where over, capped: band tid's and each tuple's
+        if (has_band) {
+            const int a = amp_b + kAmpStep * s_over[tid];
+            amp_b = a < kAmpMax ? a : kAmpMax;
+            s_ab[tid] = (unsigned char)amp_b;
         }
+        for (int u = tid; u < kTuples; u += kThreads) {
+            const int a = s_tamp[u] + kAmpStep * s_over[s_band[u]];
+            s_tamp[u] = (unsigned char)(a < kAmpMax ? a : kAmpMax);
+        }
+        __syncthreads();
         // scale-factor deltas: prev - amp + SF_DELTA_MAX over the real
-        // bands, a non-real band's amp counting as 0
-        const int prev = real_prev ? s_ab[tid - 1] : 0;
+        // bands (a zero-width band is never over, so its amp stays 0)
+        const int prev = has_band && tid > 0 ? s_ab[tid - 1] : 0;
         const int sf = real_b ? s_lsf[prev - amp_b + kSfDeltaMax] : 0;
         const int sf_w = __reduce_add_sync(kFull, sf);
         if (lane == 0) s_red[warp] = sf_w;
-        __syncthreads();
-        int fixed = kFixedBits + kCbBits * nreal;
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) fixed += s_red[w];
 
-        // refine: warp w evaluates candidate w of each block
+        // refine: warp w evaluates candidate w of each block; after the
+        // window, warp 0 alone the fallback (block kRefineBlocks)
         const int prev_gain = gain;
+        int fixed = 0;
         bool found = false;
-        for (int b = 0; b < kRefineBlocks && !found; ++b) {
-            const int cw = prev_gain + kWarps * b + warp;
-            const int mine = warp_payload(
-                s_x, s_amp, lb, cw < kGainMax ? cw : kGainMax, lane, P, magic,
-                s_consts, s_small, s_em, s_sf) + fixed;
-            if (lane == 0) s_bits[b & 1][warp] = mine;
+        for (int b = 0; !found; ++b) {
+            const bool fallback = b == kRefineBlocks;
+            if (!fallback || warp == 0) {
+                const int cw = prev_gain + kWarps * b + warp;
+                const int mine = k4_payload(
+                    s_x, s_tamp, s_keep[warp], lb,
+                    fallback || cw >= kGainMax ? kGainMax : cw, lane,
+                    s_consts, s_small, s_em, s_sf);
+                if (lane == 0) s_bits[b & 1][warp] = mine;
+            }
             __syncthreads();
+            if (b == 0) {
+                fixed = kFixedBits + kCbBits * nreal;
+#pragma unroll
+                for (int w = 0; w < kWarps; ++w) fixed += s_red[w];
+            }
+            if (fallback) {                // no fit in the window
+                gain = kGainMax;
+                bits = s_bits[b & 1][0] + fixed;
+                win = 0;
+                found = true;
+            }
 #pragma unroll
             for (int w = 0; w < kWarps; ++w) {
-                const int bw = s_bits[b & 1][w];
+                const int bw = s_bits[b & 1][w] + fixed;
                 if (!found && bw <= budget_f) {
                     const int c = prev_gain + kWarps * b + w;
                     gain = c < kGainMax ? c : kGainMax;
                     bits = bw;
+                    win = w;
                     found = true;
                 }
             }
         }
-        if (!found) {                  // no fit in the window: GAIN_MAX
-            gain = kGainMax;
-            bits = warp_payload(s_x, s_amp, lb, kGainMax, lane, P, magic,
-                                s_consts, s_small, s_em, s_sf) + fixed;
-        }
-        over = quantize_over(xr, qr, gain, s_ab_bin, s_p, s_band, s_edge,
-                             maxw, P, magic, s_consts,
-                             real_b && amp_b < kAmpMax, end_b, allowed_b);
+        any = region_over<false>(warp, lane, gain, s_cut, s_bfirst, s_maxw,
+                                 s_x, s_tamp, s_keep[win], s_p, s_toff,
+                                 s_edge, s_allowed, s_over, s_consts, pow43);
     }
 
-#pragma unroll
-    for (int k = 0; k < kBinsPerThread; ++k)
-        q_out[f * kCoeffs + tid + kThreads * k] = qr[k];
+    __syncthreads();
+    int4* qf = reinterpret_cast<int4*>(q_out + f * kCoeffs);
+    for (int u = tid; u < kTuples; u += kThreads) {
+        const float4 xv = s_x[swz(u)];
+        const uint2 m = s_keep[win][kslot(u)];
+        const int m0 = m.x & 0xFFFF, m1 = m.x >> 16;
+        const int m2 = m.y & 0xFFFF, m3 = m.y >> 16;
+        qf[u] = make_int4(xv.x < 0.0f ? -m0 : m0, xv.y < 0.0f ? -m1 : m1,
+                          xv.z < 0.0f ? -m2 : m2, xv.w < 0.0f ? -m3 : m3);
+    }
     if (has_band) amp_out[f * nb + tid] = amp_b;
     if (tid == 0) {
         gain_out[f] = gain;
@@ -312,22 +481,34 @@ extern "C" {
 // x [F,1024] f32 (16-byte aligned), allowed [F,nb] f32, budget, bt, gain0,
 // bits0 [F] i32, band_tuples [5, nb+1] i32 (tuple edges of each block type's
 // bands), len_small [81], pair_em [33*33], pair_sf [33*33], len_sf [121]
-// i32, consts [39] f32 -> q [F,1024], amp [F,nb], gain [F], bits [F] i32.
-// Returns cudaGetLastError() after the launch (0 = launched),
-// cudaErrorInvalidValue for nb outside 1..128.
+// i32, consts [15] f32, pow43 [4096] f32 -> q [F,1024] (16-byte aligned),
+// amp [F,nb], gain [F], bits [F] i32. Returns cudaGetLastError() after the
+// launch (0 = launched), cudaErrorInvalidValue for nb outside 1..128.
 int mrc_rd_loop(const float* x, const float* allowed, const int* budget,
                 const int* bt, const int* gain0, const int* bits0,
                 const int* band_tuples, const int* len_small,
                 const int* pair_em, const int* pair_sf, const int* len_sf,
-                const float* consts, int* q, int* amp, int* gain, int* bits,
-                long long n_frames, int nb, void* stream) {
+                const float* consts, const float* pow43, int* q, int* amp,
+                int* gain, int* bits, long long n_frames, int nb,
+                void* stream) {
     if (nb < 1 || nb > kNbMax || n_frames < 1 || n_frames > 0x7fffffffLL)
         return (int)cudaErrorInvalidValue;
     rd_loop_kernel<<<(unsigned)n_frames, kThreads, 0,
                      (cudaStream_t)stream>>>(
         x, allowed, budget, bt, gain0, bits0, band_tuples, len_small,
-        pair_em, pair_sf, len_sf, consts, q, amp, gain, bits, nb);
+        pair_em, pair_sf, len_sf, consts, pow43, q, amp, gain, bits, nb);
     return (int)cudaGetLastError();
+}
+
+// The blocks of K4 an SM holds at once on the current card (the occupancy
+// calculator: registers and static shared memory), or -1 on an error.
+int mrc_rd_loop_blocks_per_sm(void) {
+    int n = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, rd_loop_kernel,
+                                                      kThreads, 0) !=
+        cudaSuccess)
+        return -1;
+    return n;
 }
 
 }  // extern "C"

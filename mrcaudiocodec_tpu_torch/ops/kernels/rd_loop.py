@@ -13,7 +13,9 @@ tensors and takes the plain version for CPU tensors.
 for x [F, 1024] float32 (16-byte aligned), allowed [F, NB] float32 and
 budget_content, bt (0..4), gain0 (0..255) and bits0, [F] int32 each: the
 inner sweep's choice, from which one block a frame runs the loop to that
-frame's own exit. No host sync.
+frame's own exit. No host sync. The kernel reads |q|^(4/3) from a table of
+QMAX + 1 entries (`pow43_table`), built on the tensors' device at first use
+by quantize.dequantize's own chain.
 """
 from __future__ import annotations
 
@@ -34,13 +36,11 @@ NB_MAX = 128            # kNbMax
 
 @functools.lru_cache(maxsize=1)
 def consts() -> np.ndarray:
-    """The kernel's [39] f32 constants: K2's 11 (xsqrt start polynomial,
-    inverse step fractions, QUANT_MAGIC), then the step fractions [4],
-    xlog2's polynomial [13], xexp2's [8], 4/3, ln 2 and sqrt 2 (offsets
-    11, 15, 28, 36, 37, 38 in csrc/rd_loop.cu)."""
+    """The kernel's [15] f32 constants: K2's 11 (xsqrt start polynomial,
+    inverse step fractions, QUANT_MAGIC), then the step fractions [4]
+    (offset 11 in csrc/rd_loop.cu)."""
     parts = [xpsy.RSQRT_P, quantize.INV_FRACS, [quantize.QUANT_MAGIC],
-             quantize.FRACS, xpsy._LOG2_P, xpsy._EXP_K,
-             [quantize.C43, xpsy.LN2, xpsy.SQRT2]]
+             quantize.FRACS]
     return np.concatenate([np.asarray(p, np.float32) for p in parts])
 
 
@@ -49,14 +49,35 @@ def _dev_consts(device: str):
     return torch.from_numpy(consts()).to(device)
 
 
+def pow43_table(device) -> torch.Tensor:
+    """[QMAX + 1] f32: |q|^(4/3) for q = 0 .. QMAX, 0 at q = 0, by
+    quantize.dequantize's own chain at step 1 (e = GAIN_BIAS, an exact
+    1.0) on `device`: the kernel's val = table[|q|] * step is dequantize's
+    value bit for bit."""
+    q = torch.arange(C.QMAX + 1, dtype=torch.int32, device=device)
+    return quantize.dequantize(q, torch.full_like(q, C.GAIN_BIAS))
+
+
+@functools.lru_cache(maxsize=None)
+def _dev_pow43(device: str):
+    return pow43_table(device)
+
+
 @functools.lru_cache(maxsize=1)
 def _fn():
     from .build import lib
     fn = lib("rd_loop").mrc_rd_loop
-    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_longlong, ctypes.c_int,
+    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_longlong, ctypes.c_int,
                                             ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def blocks_per_sm() -> int:
+    """The blocks of K4 one SM of the current card holds at once (CUDA's
+    occupancy calculator on the built kernel)."""
+    from .build import lib
+    return int(lib("rd_loop").mrc_rd_loop_blocks_per_sm())
 
 
 def check_inputs(name, x, allowed, budget_content, bt, gain0, bits0,
@@ -96,13 +117,14 @@ def rd_loop_kernel(x, allowed, budget_content, bt, gain0, bits0, fs: int):
     em, sf = _pair_tables(str(dev))
     bands, cst = _band_tuples(fs, str(dev)), _dev_consts(str(dev))
     with torch.cuda.device(dev):           # the tensors' card is current
+        pow43 = _dev_pow43(str(dev))
         rc = _fn()(x.data_ptr(), allowed.data_ptr(),
                    budget_content.data_ptr(), bt.data_ptr(),
                    gain0.data_ptr(), bits0.data_ptr(), bands.data_ptr(),
                    tb["len_small"].data_ptr(), em.data_ptr(), sf.data_ptr(),
                    entropy._len_sf(str(dev)).data_ptr(), cst.data_ptr(),
-                   q.data_ptr(), amp.data_ptr(), gain.data_ptr(),
-                   bits.data_ptr(), nf, nb,
+                   pow43.data_ptr(), q.data_ptr(), amp.data_ptr(),
+                   gain.data_ptr(), bits.data_ptr(), nf, nb,
                    torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"rd_loop launch failed: code {rc}")

@@ -5,6 +5,7 @@
     kernel_device_totals(prof, names)
     capture_inputs(run, per_key)   K1-K4 inputs recorded at their wrappers
     kernel_bound(key, args)        bytes, ops and op rate of one launch
+    rd_loop_ops(args, kept)        K4's f32 ops, kept magnitudes or not
     bound_ms(parts)                the least time for a set of launches
 
 Bounds are against the H100 SXM's published rates at its 700 W limit; a
@@ -28,11 +29,14 @@ INT32_OPS_PER_S = F32_OPS_PER_S / 2
 
 KERNEL_NAMES = ("fft_stages", "quant_cost", "record_pack", "rd_loop")
 # f32 ops a bin (K2's pricing): quantize (two xsqrt of 24 ops, the step
-# and |x| * step, a * sqrt(a), add, floor, min); dequantize (max, xlog2's
-# 26, the 4/3 multiply, xexp2's 20, the zero select, the step, the sign);
-# then d = x - xhat and d * d; the scan adds one op a bin a stage
+# and |x| * step, a * sqrt(a), add, floor, min); dequantize by its chain
+# (max, xlog2's 26, the 4/3 multiply, xexp2's 20, the zero select, the
+# step, the sign) or from K4's |q|^(4/3) table (the read, the step, the
+# product, the sign); then d = x - xhat and d * d; the scan adds one op a
+# bin a stage
 QUANT_OPS = 54
 DEQUANT_OPS = 53
+DEQUANT_TABLE_OPS = 4
 
 
 def log(*a):
@@ -162,20 +166,11 @@ def kernel_bound(key, args):
         return (rows * C.LONG_COEFFS * 8 + rows * (2 * g + 1) * 4,
                 rows * g * C.LONG_COEFFS * QUANT_OPS, F32_OPS_PER_S)
     if key[0] == "rd_loop":
-        # x and allowed in, q and amp out, six [F] words; the candidates
-        # and over-masks these inputs need, counted by the plain loop
-        from .ops import rd
-        allowed, bt, fs = args[1], args[3], args[6]
-        rows, nb = allowed.shape
-        st = rd.loop_counts(*args)
-        short = (bt == C.SHORT).to(st["over_masks"].dtype)
-        stages = (short * rd.scan_stages(fs, True)
-                  + (1 - short) * rd.scan_stages(fs, False))
-        per_mask = QUANT_OPS + DEQUANT_OPS + 2 + stages
-        ops = C.LONG_COEFFS * (int(st["cands"].sum()) * QUANT_OPS
-                               + int((st["over_masks"] * per_mask).sum()))
-        return (rows * (2 * C.LONG_COEFFS + 2 * nb + 6) * 4, ops,
-                F32_OPS_PER_S)
+        # x and allowed in, q and amp out, six [F] words, the |q|^(4/3)
+        # table; the candidates and over-masks these inputs need
+        rows, nb = args[1].shape
+        return (rows * (2 * C.LONG_COEFFS + 2 * nb + 6) * 4
+                + (C.QMAX + 1) * 4, rd_loop_ops(args), F32_OPS_PER_S)
     # K3: the packed records' q, amp, cb, gain, bt and their order entries
     # in; the compact body and nbytes out. Integer work these records need:
     # a shift and an OR per bit-carrying slot
@@ -186,6 +181,31 @@ def kernel_bound(key, args):
     body = int(((C.FRAME_LEN_BITS + content + 7) >> 3).sum())
     return (n * (2 * C.LONG_COEFFS + 2 * nb + 2 + 1 + 4) + body + n * 4,
             2 * int((lens > 0).sum()), INT32_OPS_PER_S)
+
+
+def rd_loop_ops(args, kept: bool = True) -> int:
+    """K4's f32 ops on these inputs, from what the plain loop reaches
+    (rd.loop_counts): each candidate's quantize, then every over-mask's
+    d, d * d and scan stages (one op a bin a stage). kept (K4's design):
+    only the entry quantizes, and every over-mask dequantizes from the
+    table; else (the count of a K4 that quantizes again) every over-mask
+    quantizes and dequantizes by the xlog2 / xexp2 chain."""
+    from . import config as C
+    from .ops import rd
+    bt, fs = args[3], args[6]
+    st = rd.loop_counts(*args)
+    short = (bt == C.SHORT).to(st["over_masks"].dtype)
+    stages = (short * rd.scan_stages(fs, True)
+              + (1 - short) * rd.scan_stages(fs, False))
+    masks = int((st["over_masks"] * (2 + stages)).sum())
+    n_masks = int(st["over_masks"].sum())
+    if kept:
+        per_bin = (int(st["cands"].sum()) + bt.shape[0]) * QUANT_OPS \
+            + n_masks * DEQUANT_TABLE_OPS + masks
+    else:
+        per_bin = int(st["cands"].sum()) * QUANT_OPS \
+            + n_masks * (QUANT_OPS + DEQUANT_OPS) + masks
+    return C.LONG_COEFFS * per_bin
 
 
 def bound_ms(parts):

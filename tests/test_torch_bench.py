@@ -106,3 +106,45 @@ def test_kernel_bounds_on_cpu_inputs():
     assert by == "bytes" and t == pytest.approx(1.0)
     t, by = profiling.bound_ms([(0, 3.0, 1e3), (3.35e9, 1.0, 1e3)])
     assert by == "operations" and t == pytest.approx(4.0)
+
+
+def test_k4_bound_counts_kept_magnitudes():
+    """K4's op count (profiling.rd_loop_ops, kernel_bound): each candidate's
+    quantize and the entry's, then a table dequantize, d, d * d and one add
+    a scan stage a bin an over-mask; the requantizing count (kept=False)
+    quantizes and dequantizes by the xlog2 / xexp2 chain in every one. The
+    bytes add the |q|^(4/3) table."""
+    from test_torch_rd_loop import loop_inputs, rd_case
+    from mrcaudiocodec_tpu_torch.ops import rd
+    fs = 44100
+    case = tuple(v[:10] for v in rd_case("all_short", fs))
+    args = (*loop_inputs(*case, fs), fs)
+    st = {k: v.numpy().astype(np.int64) for k, v in
+          rd.loop_counts(*args).items()}
+    bt = args[3].numpy()
+    stages = np.where(bt == C.SHORT, rd.scan_stages(fs, True),
+                      rd.scan_stages(fs, False))
+    masks = int((st["over_masks"] * (2 + stages)).sum())
+    cands, n_masks, rows = int(st["cands"].sum()), int(
+        st["over_masks"].sum()), len(bt)
+    assert cands > 0 and n_masks > rows
+    kept = 1024 * ((cands + rows) * 54 + n_masks * 4 + masks)
+    requantized = 1024 * (cands * 54 + n_masks * (54 + 53) + masks)
+    assert profiling.rd_loop_ops(args) == kept
+    assert profiling.rd_loop_ops(args, kept=False) == requantized
+    assert kept < requantized
+    nb = args[1].shape[1]
+    b, o, rate = profiling.kernel_bound(("rd_loop", (rows,)), args)
+    assert (b, o, rate) == (rows * (2 * 1024 + 2 * nb + 6) * 4 + 4096 * 4,
+                            kept, profiling.F32_OPS_PER_S)
+
+
+def test_k4_turns_refuses_without_card(tmp_path, capsys):
+    """The in-turns K4 timing prints no JSON line and exits 2 without a
+    card, before it imports or builds the other version."""
+    from mrcaudiocodec_tpu_torch import k4_turns
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    assert k4_turns.main([str(tmp_path / "missing")]) == 2
+    out = capsys.readouterr()
+    assert out.out == "" and "no CUDA card" in out.err

@@ -18,13 +18,19 @@ decoupled look-back (tiles taken in order by a bounded number of resident
 blocks, finishing in random orders) against an exclusive cumsum, and its
 warps per block against the shared memory a block may use. K4
 (csrc/rd_loop.cu): `k4_model` runs its schedule one frame at a time (the
-band facts the kernel derives from `quant_cost.band_tuples`, 4 candidates
-a step in ascending order, the first fit of the first block with one, the
-fallback, the frame's own exit, the pinned scan in double-buffered stage
-form) and must equal `rd_batch` on tests/test_torch_rd_loop.py's corner
-sets, so the per-frame exit is the batch's; its constants against the
-format's and `rd_loop.consts()`, its static shared memory; and
-`build.stale`, which follows the csrc/*.cuh headers a source includes.
+band facts and warp regions the kernel derives from
+`quant_cost.band_tuples`, 4 candidates a step in ascending order, each
+warp's kept magnitudes, the first fit of the first block with one, the
+fallback in one warp, the over-mask on the winner's magnitudes with
+|q|^(4/3) from the table and the region scan, the frame's own exit) and
+must equal `rd_batch` on every corner set of tests/test_torch_rd_loop.py
+at three rates, so the per-frame exit is the batch's; the region scan
+(in place, a float4 a tuple, chunks from the top down) equals
+`xpsy.seg_scan` bit for bit on every band table and on tables the layouts
+lack; the table equals the port's, the JAX package's and the spec's
+dequantize; its constants against the format's and `rd_loop.consts()`,
+its static shared memory and residency; and `build.stale`, which follows
+the csrc/*.cuh headers a source includes.
 """
 import os
 import re
@@ -655,50 +661,106 @@ def test_k3_warps_per_block_fit_shared_memory(cap):
 
 WARPS = 4                              # kWarps = REFINE_BLOCK
 REFINE_BLOCKS = 4                      # kRefineBlocks
+REGION = C.LONG_COEFFS // WARPS        # kRegion
 
 
-def k4_frame_facts(fs, bt):
-    """What K4's set-up derives from band_tuples[bt]: band edges in bins,
-    the tuple -> band map, each bin's segment start, the widest band, the
-    real bands' count, each band's last bin and whether the band before it
-    is real."""
-    te = quant_cost.band_tuples(fs)[bt].astype(np.int64)
+def _f32_bits(a):
+    return np.asarray(a, np.float32).view(np.int32)
+
+
+def k4_facts(te):
+    """What K4's set-up derives from one row of tuple edges: band edges in
+    bins, the tuple -> band map, each tuple's offset in its band, each
+    bin's segment start, the widest band, the real bands' count, each
+    band's last bin, and the 4 warp regions (cut at the first band edge at
+    or above 256 w: tuples [t0, t1), bands [b0, b1), the widest band)."""
+    te = np.asarray(te, np.int64)
     nb = len(te) - 1
     edge = 4 * te
     band = np.repeat(np.arange(nb), np.diff(te))              # [256]
+    toff = np.arange(C.LONG_COEFFS // 4) - te[band]
     seg = edge[band[np.arange(C.LONG_COEFFS) >> 2]]
     width = np.diff(edge)
     real = width > 0
-    real_prev = np.concatenate([[False], real[:-1]])
-    return dict(edge=edge, band=band, seg=seg, maxw=int(width.max()),
-                nreal=int(real.sum()), real=real, real_prev=real_prev,
-                end=np.where(real, edge[1:] - 1, 0))
+    first = ([0] + [int(np.argmax(edge >= REGION * w))
+                    for w in range(1, WARPS)] + [nb])
+    cut = [int(edge[b]) for b in first[:-1]] + [C.LONG_COEFFS]
+    regions = [dict(t0=cut[w] >> 2, t1=cut[w + 1] >> 2, b0=first[w],
+                    b1=first[w + 1],
+                    maxw=int(width[first[w]:first[w + 1]].max(initial=0)))
+               for w in range(WARPS)]
+    return dict(edge=edge, band=band, toff=toff, seg=seg,
+                maxw=int(width.max()), nreal=int(real.sum()), real=real,
+                end=np.where(real, edge[1:] - 1, 0), regions=regions)
 
 
-def k4_over(x, q, gain, amp, facts, allowed):
-    """over_mask the kernel's way on one frame: each bin dequantized and
-    squared, the scan double-buffered one stage at a time."""
-    from mrcaudiocodec_tpu_torch.ops import quantize
-    amp_bin = torch.from_numpy(amp[facts["band"]].repeat(4))
-    e = torch.clamp(gain - amp_bin, C.GAIN_MIN, C.GAIN_MAX)
-    d = x - quantize.dequantize(q, e)
-    buf = [(d * d).numpy(), None]
-    cur, s, idx = 0, 1, np.arange(C.LONG_COEFFS)
-    while s < facts["maxw"]:
-        src = buf[cur]
-        take = idx - s >= facts["seg"]
-        buf[cur ^ 1] = np.where(take, src + src[np.maximum(idx - s, 0)], src)
-        cur ^= 1
+def k4_frame_facts(fs, bt):
+    """k4_facts of the frame family of block type bt."""
+    return k4_facts(quant_cost.band_tuples(fs)[bt])
+
+
+def k4_region_scan(p, facts):
+    """K4's pinned scan of one frame's d * d [1024] f32, region by region
+    as the kernel runs it: a tuple's 4 bins as one float4; stage s (1, 2,
+    4, ... below the region's widest band) adds the shifted bins where the
+    tuple's offset in its band is at least max(1, s / 4) (below s = 4 the
+    tuple's own bins and the tuple before's); 32 tuples at a time from the
+    region's top down, every lane reading before any lane writes."""
+    t = np.asarray(p, np.float32).reshape(-1, 4).copy()
+    with np.errstate(over="ignore"):          # a sum may overflow to inf
+        for r in facts["regions"]:
+            _scan_region(t, r, facts["toff"])
+    return t.reshape(-1)
+
+
+def _scan_region(t, r, toff):
+    """One region's stages on the tuples t [256, 4], in place."""
+    top = r["t0"] + ((r["t1"] - r["t0"] - 1) & ~31)
+    s = 1
+    while s < r["maxw"]:
+        st = 1 if s < 4 else s >> 2
+        for base in range(top, r["t0"] - 1, -32):
+            u = np.arange(base, min(base + 32, r["t1"]))
+            v = t[u].copy()
+            take = toff[u] >= st
+            w = t[np.where(take, u - st, u)].copy()
+            o = v.copy()
+            if s == 1:
+                o[:, 0] = np.where(take, v[:, 0] + w[:, 3], v[:, 0])
+                o[:, 1:] = v[:, 1:] + v[:, :-1]
+            elif s == 2:
+                o[:, :2] = np.where(take[:, None], v[:, :2] + w[:, 2:],
+                                    v[:, :2])
+                o[:, 2:] = v[:, 2:] + v[:, :2]
+            else:
+                o = np.where(take[:, None], v + w, v)
+            t[u] = o                        # every lane read first
         s <<= 1
-    noise = buf[cur][facts["end"]]
-    return facts["real"] & (noise > allowed) & (amp < C.AMP_MAX)
+
+
+def k4_over(x, mags, gain, tamp, facts, allowed, pow43):
+    """region_over on one frame: the kept magnitudes' d * d (the table's
+    |q|^(4/3) times the step, the sign from x), the region scan, then each
+    real band's flag (its tuple amp below AMP_MAX)."""
+    from mrcaudiocodec_tpu_torch.ops import quantize
+    e = np.clip(gain - np.repeat(tamp, 4), C.GAIN_MIN, C.GAIN_MAX)
+    step = quantize.band_steps(torch.from_numpy(e)).numpy()
+    val = pow43[mags] * step
+    d = x - np.where((x < 0) & (mags != 0), -val, val)
+    noise = k4_region_scan(d * d, facts)[facts["end"]]
+    lo = np.minimum(facts["edge"][:-1], C.LONG_COEFFS - 1) >> 2
+    return (facts["real"] & (noise > allowed)
+            & (tamp[lo] < C.AMP_MAX))
 
 
 def k4_model(x, allowed, bc, bt, gain0, bits0, fs):
     """csrc/rd_loop.cu's schedule, frame by frame -> (q, amp, gain, bits)
-    and each frame's refine iterations."""
+    and each frame's refine iterations. The entry quantizes; each refine
+    warp keeps its candidate's magnitudes, the fallback is one warp's (slot
+    0), and the over-mask reads the winner's."""
     from mrcaudiocodec_tpu_torch.ops import quantize
     len_sf = T.code_arrays()["len_sf"]
+    pow43 = rd_loop.pow43_table("cpu").numpy()
     nf, nb = x.shape[0], allowed.shape[1]
     outs = [np.zeros((nf, C.LONG_COEFFS), np.int32),
             np.zeros((nf, nb), np.int32), np.zeros(nf, np.int32),
@@ -706,61 +768,67 @@ def k4_model(x, allowed, bc, bt, gain0, bits0, fs):
     iters = np.zeros(nf, np.int64)
     for f in range(nf):
         facts = k4_frame_facts(fs, int(bt[f]))
-        xf, btf = x[f:f + 1], bt[f:f + 1]
-        amp = np.zeros(nb, np.int64)
+        xf, btf, xn = x[f:f + 1], bt[f:f + 1], x[f].numpy()
+        tamp = np.zeros(C.LONG_COEFFS // 4, np.int64)     # a tuple's amp
+        amp = np.zeros(nb, np.int64)                       # a band's
         gain, bits = int(gain0[f]), int(bits0[f])
 
-        def quantize_at(g, amp):
-            amp_bin = torch.from_numpy(amp[facts["band"]].repeat(4))
-            return quantize.quantize(xf[0], torch.clamp(g - amp_bin, 0, 255))
+        def kept(gains, tamp):
+            """a warp's kept magnitudes at each gain: |quantize|."""
+            amp_bin = torch.from_numpy(np.repeat(tamp, 4))
+            e = torch.clamp(torch.tensor(gains)[:, None] - amp_bin, 0, 255)
+            return quantize.quantize(xf.expand(len(gains), -1),
+                                     e).abs().numpy()
 
-        q = quantize_at(gain, amp)
-        over = k4_over(xf[0], q, gain, amp, facts, allowed[f].numpy())
+        keep, win = kept([gain], tamp), 0                  # the entry's
+        over = k4_over(xn, keep[win], gain, tamp, facts, allowed[f].numpy(),
+                       pow43)
         for it in range(1, C.OUTER_MAX):
             if not over.any():                      # the frame's own exit
                 break
             iters[f] += 1
             amp = np.minimum(amp + C.AMP_STEP * over, C.AMP_MAX)
-            prev = np.where(facts["real_prev"],
-                            np.concatenate([[0], amp[:-1]]), 0)
+            tamp = np.minimum(tamp + C.AMP_STEP * over[facts["band"]],
+                              C.AMP_MAX)
+            prev = np.concatenate([[0], amp[:-1]])
             sf = np.where(facts["real"],
                           len_sf[prev - amp + C.SF_DELTA_MAX], 0).sum()
             fixed = (C.BLOCK_TYPE_BITS + C.GAIN_BITS
                      + C.CB_BITS * facts["nreal"] + int(sf))
             amp_bin = torch.from_numpy(
-                amp[facts["band"]].repeat(4).astype(np.int32))[None]
-
-            def payload(gains):
-                g = torch.tensor([gains], dtype=torch.int32)
-                return quant_cost.payload_bits_plain(xf, amp_bin, g, btf,
-                                                     fs)[0].numpy()
-            prev_gain, found = gain, False
-            for b in range(REFINE_BLOCKS):
-                cand = [min(prev_gain + WARPS * b + w, C.GAIN_MAX)
-                        for w in range(WARPS)]
-                slot = payload(cand) + fixed           # one warp each
-                for w in range(WARPS):
-                    if not found and slot[w] <= int(bc[f]):
-                        gain, bits, found = cand[w], int(slot[w]), True
-                if found:
+                np.repeat(tamp, 4).astype(np.int32))[None]
+            prev_gain = gain
+            for b in range(REFINE_BLOCKS + 1):
+                fallback = b == REFINE_BLOCKS           # warp 0 alone
+                cand = ([C.GAIN_MAX] if fallback else
+                        [min(prev_gain + WARPS * b + w, C.GAIN_MAX)
+                         for w in range(WARPS)])
+                slot = quant_cost.payload_bits_plain(
+                    xf, amp_bin, torch.tensor([cand], dtype=torch.int32),
+                    btf, fs)[0].numpy() + fixed        # one warp each
+                fits = np.flatnonzero(slot <= int(bc[f]))
+                if fallback or len(fits):
+                    w = 0 if fallback else int(fits[0])
+                    gain, bits, win = cand[w], int(slot[w]), w
+                    keep = kept(cand, tamp)
                     break
-            if not found:
-                gain = C.GAIN_MAX
-                bits = int(payload([C.GAIN_MAX])[0]) + fixed
-            q = quantize_at(gain, amp)
-            over = k4_over(xf[0], q, gain, amp, facts, allowed[f].numpy())
-        outs[0][f], outs[1][f] = q.numpy(), amp
-        outs[2][f], outs[3][f] = gain, bits
+            over = k4_over(xn, keep[win], gain, tamp, facts,
+                           allowed[f].numpy(), pow43)
+        outs[0][f] = np.where(xn < 0, -keep[win], keep[win])
+        outs[1][f], outs[2][f], outs[3][f] = amp, gain, bits
     return outs, iters
 
 
-@pytest.mark.parametrize("fs,kind", [(44100, "adversarial"),
-                                     (48000, "starved"),
-                                     (32000, "all_short"),
-                                     (44100, "silent_pad")])
+K4_CORNERS = ("music", "adversarial", "starved", "all_short", "silent_pad",
+              "outer_max")       # test_torch_rd_loop.KINDS
+
+
+@pytest.mark.parametrize("kind", K4_CORNERS)
+@pytest.mark.parametrize("fs", [32000, 44100, 48000])
 def test_k4_schedule_model_matches_rd_batch(fs, kind):
     from mrcaudiocodec_tpu_torch.ops import rd
-    from test_torch_rd_loop import loop_inputs, rd_case
+    from test_torch_rd_loop import KINDS, loop_inputs, rd_case
+    assert K4_CORNERS == KINDS
     case = rd_case(kind, fs)
     if kind != "adversarial":
         case = tuple(v[:12] for v in case)
@@ -779,7 +847,8 @@ def test_k4_schedule_model_matches_rd_batch(fs, kind):
 def test_k4_frame_facts_match_the_scan_tables(fs):
     """The kernel's band facts give xpsy's pinned scan tables: the stages
     (1, 2, 4, ... below the widest band), the include masks and the band
-    ends, for every block type."""
+    ends, for every block type; the warp regions partition the bins and
+    hold whole bands, each region's widest band at most the frame's."""
     from mrcaudiocodec_tpu_torch import xpsy
     from mrcaudiocodec_tpu_torch.ops import entropy, rd
     from mrcaudiocodec_tpu_torch.ops.psycho import unified_band_edges
@@ -803,6 +872,115 @@ def test_k4_frame_facts_match_the_scan_tables(fs):
         np.testing.assert_array_equal(facts["end"][real], ends[real])
         np.testing.assert_array_equal(real, tb["width"][bt].numpy() > 0)
         assert facts["nreal"] == int(tb["nreal"][bt])
+        _check_regions(facts)
+
+
+def _check_regions(facts):
+    regs, edge = facts["regions"], facts["edge"]
+    assert regs[0]["t0"] == 0 and regs[-1]["t1"] == C.LONG_COEFFS // 4
+    assert regs[0]["b0"] == 0 and regs[-1]["b1"] == len(edge) - 1
+    for a, b in zip(regs, regs[1:]):
+        assert a["t1"] == b["t0"] and a["b1"] == b["b0"]
+    for w, r in enumerate(regs):
+        for b in range(r["b0"], r["b1"]):
+            if edge[b + 1] > edge[b]:         # a real band lies inside
+                assert 4 * r["t0"] <= edge[b] and edge[b + 1] <= 4 * r["t1"]
+        assert r["maxw"] <= facts["maxw"]
+        if w:
+            assert 4 * r["t0"] >= REGION * w
+    # a tuple's offset in its band fits the kernel's byte
+    assert facts["toff"].max() < 256
+
+
+def _adversarial_tuples():
+    """Tuple-edge rows the layouts do not have (a band is whole tuples):
+    one-tuple bands, the widest band (64 tuples) across a nominal cut,
+    zero-width bands inside and at the end, a region with no band edge."""
+    ones = list(range(51))                             # 50 one-tuple bands
+    wide = ones + [114, 114, 115, 116, 180, 180, 244, 256]
+    rows = {"one-tuple bands and a 64-tuple band across bin 256": wide,
+            "a 64-tuple band over bins 768-1023, zero-width bands":
+                list(range(0, 192, 2)) + [192, 192, 256, 256, 256],
+            "one band over bins 0-255, then one-tuple bands":
+                [0] + list(range(64, 128)) + [192, 256],
+            "widest bands back to back": [0, 64, 128, 192, 256]}
+    return {k: np.asarray(v, np.int64) for k, v in rows.items()}
+
+
+def _scan_cases():
+    from mrcaudiocodec_tpu_torch.ops.psycho import unified_band_edges
+    cases = {}
+    for fs in (32000, 44100, 48000):
+        le, se = unified_band_edges(fs)
+        cases[f"{fs} long"] = np.asarray(le) // 4
+        cases[f"{fs} short"] = np.asarray(se) // 4
+    cases.update(_adversarial_tuples())
+    return cases
+
+
+def _scan_values(rng):
+    """d * d-like values whose sums round at every add: magnitudes over
+    60 decades, zeros, subnormals, and values whose sum overflows."""
+    p = (10.0 ** rng.uniform(-30, 30, C.LONG_COEFFS)).astype(np.float32)
+    p[rng.integers(0, C.LONG_COEFFS, 64)] = 0.0
+    p[rng.integers(0, C.LONG_COEFFS, 16)] = np.float32(1e-40)
+    p[rng.integers(0, C.LONG_COEFFS, 4)] = np.float32(3e38)
+    return p
+
+
+@pytest.mark.parametrize("case", sorted(_scan_cases()))
+def test_k4_region_scan_matches_seg_scan(case):
+    """K4's region scan (in place, a float4 a tuple, chunks from the top
+    down, stages up to the region's widest band) gives xpsy.seg_scan's
+    array bit for bit, every bin, on every band table of the layouts and
+    on tables the layouts do not have."""
+    from mrcaudiocodec_tpu_torch import xpsy
+    te = _scan_cases()[case]
+    facts = k4_facts(te)
+    _check_regions(facts)
+    stages = xpsy._dev_seg_tables(tuple(int(v) for v in 4 * te), "cpu")[0]
+    rng = np.random.default_rng(len(case))
+    for _ in range(3):
+        p = _scan_values(rng)
+        want = xpsy.seg_scan(torch.from_numpy(p)[None], stages)[0].numpy()
+        np.testing.assert_array_equal(_f32_bits(k4_region_scan(p, facts)),
+                                      _f32_bits(want))
+
+
+def test_k4_pow43_table_matches_dequantize():
+    """The |q|^(4/3) table, all QMAX + 1 entries, bitwise: the port's
+    quantize.dequantize chain written out (xexp2(4/3 * xlog2(max(m, 1))),
+    0 at 0), the port's dequantize at step 1 and at other steps divided
+    out exactly (a power of two), the JAX package's dequantize and the
+    spec's, all on the CPU."""
+    import jax.numpy as jnp
+    from mrcaudiocodec_tpu.ops import quantize as jq
+    from mrcaudiocodec_tpu.spec import quantize as sq
+    from mrcaudiocodec_tpu_torch import xpsy
+    from mrcaudiocodec_tpu_torch.ops import quantize
+    table = rd_loop.pow43_table("cpu")
+    assert table.dtype == torch.float32 and table.shape == (C.QMAX + 1,)
+    m = torch.arange(C.QMAX + 1, dtype=torch.float32)
+    chain = xpsy.xexp2(quantize.C43 * xpsy.xlog2(torch.clamp(m, min=1.0)))
+    chain = torch.where(m == 0, 0.0, chain)
+    np.testing.assert_array_equal(_f32_bits(table.numpy()),
+                                  _f32_bits(chain.numpy()))
+    q = np.arange(C.QMAX + 1, dtype=np.int32)
+    e = np.full_like(q, C.GAIN_BIAS)
+    np.testing.assert_array_equal(
+        _f32_bits(table.numpy()), _f32_bits(np.asarray(jq.dequantize(
+            jnp.asarray(q), jnp.asarray(e)))))
+    np.testing.assert_array_equal(_f32_bits(table.numpy()),
+                                  _f32_bits(sq.dequantize(q, e)))
+    # val = table[|q|] * step, the sign after: dequantize at any exponent
+    for ev in (0, 77, 128, 200, 255):
+        eb = torch.full((C.QMAX + 1,), ev, dtype=torch.int32)
+        qs = torch.from_numpy(np.where(q % 3 == 1, -q, q))
+        val = table[qs.abs().long()] * quantize.band_steps(eb)
+        want = quantize.dequantize(qs, eb)
+        np.testing.assert_array_equal(
+            _f32_bits(torch.where(qs < 0, -val, val).numpy()),
+            _f32_bits(want.numpy()))
 
 
 # ---------------------------------------------------------------------------
@@ -834,45 +1012,60 @@ def _cu_ints(path):
 def test_k4_constants_match_the_format():
     k = _cu_ints(RD_LOOP_CU)
     from mrcaudiocodec_tpu_torch.ops import rd
-    assert k["kWarps"] == rd.REFINE_BLOCK
-    assert k["kRefineBlocks"] == rd.N_REFINE_BLOCKS == 4
+    assert k["kWarps"] == rd.REFINE_BLOCK == WARPS
+    assert k["kRefineBlocks"] == rd.N_REFINE_BLOCKS == REFINE_BLOCKS == 4
+    assert k["kRegion"] == REGION
     assert (k["kOuterMax"], k["kAmpStep"], k["kAmpMax"], k["kGainMax"]) == (
         C.OUTER_MAX, C.AMP_STEP, C.AMP_MAX, C.GAIN_MAX)
     assert k["kFixedBits"] == C.BLOCK_TYPE_BITS + C.GAIN_BITS
     assert (k["kCbBits"], k["kSfDeltaMax"]) == (C.CB_BITS, C.SF_DELTA_MAX)
     assert k["kLenSf"] == len(T.code_arrays()["len_sf"])
-    # the constants' offsets in rd_loop.consts()
+    # the table's length and the magnitudes' 16-bit slots
+    assert k["kQmax"] == C.QMAX and C.QMAX < 1 << 16
+    assert C.AMP_MAX < 256                   # a tuple's amp is one byte
+    # the constants' offsets in rd_loop.consts(): K2's, then the fractions
     from mrcaudiocodec_tpu_torch import xpsy
     from mrcaudiocodec_tpu_torch.ops import quantize
     c = rd_loop.consts()
     assert c.dtype == np.float32 and len(c) == k["kAllConsts"]
+    assert k["kConsts"] == k["kFrac"] == 11
     np.testing.assert_array_equal(c[:6], np.float32(xpsy.RSQRT_P))
     np.testing.assert_array_equal(c[6:10], quantize.INV_FRACS)
     assert c[10] == np.float32(quantize.QUANT_MAGIC)
     np.testing.assert_array_equal(c[k["kFrac"]:k["kFrac"] + 4],
                                   quantize.FRACS)
-    np.testing.assert_array_equal(c[k["kLog2P"]:k["kLog2P"] + 13],
-                                  np.float32(xpsy._LOG2_P))
-    np.testing.assert_array_equal(c[k["kExpK"]:k["kExpK"] + 8],
-                                  np.float32(xpsy._EXP_K))
-    assert (c[k["kC43"]], c[k["kLn2"]], c[k["kSqrt2"]]) == (
-        np.float32(quantize.C43), np.float32(xpsy.LN2),
-        np.float32(xpsy.SQRT2))
+    # xlog2 and xexp2 left the kernel with their constants: the table
+    # holds their values
+    with open(RD_LOOP_CU) as f:
+        src = f.read()
+    assert "xlog2(" not in src and "xexp2(" not in src
 
 
 def test_k4_static_shared_memory_fits_48_kb():
-    """x and amp_bin (swizzled, 4 KB each), the scan's two 4 KB buffers,
-    K2's code tables, len_sf, the constants, the band map, edges, amps, a
-    warp reduction slot each and the refine block's double-buffered bits."""
+    """x (swizzled float4s), the 4 warps' kept magnitudes (4 x 1024
+    uint16), the over-mask's d * d (float4s), K2's code tables, len_sf,
+    the constants, allowed noise and edges of up to 128 bands, a byte a
+    tuple for its band, offset and amp, a byte a band for its flag and its
+    amp, the regions' cuts, first bands and widest bands, a warp reduction
+    slot each and the refine block's double-buffered payloads. Under the
+    48 KB of static shared memory, and the kMinBlocks blocks an SM that
+    __launch_bounds__ asks for (with the 1 KB the card reserves a block)
+    fit the 227 KB an SM offers, as do their registers (72 a thread)."""
     k = _cu_ints(RD_LOOP_CU)
-    nbmax, tuples, coeffs = 128, C.LONG_COEFFS // 4, C.LONG_COEFFS
-    used = (16 * tuples * 2 + 4 * 2 * coeffs + 4 * (81 + 2 * 33 * 33)
-            + 4 * k["kLenSf"] + 4 * k["kAllConsts"] + tuples
-            + 4 * (nbmax + 1) + 4 * nbmax + 4 * k["kWarps"]
-            + 4 * 2 * k["kWarps"])
-    assert used == 27392
-    assert used < record_pack.SMEM_LIMIT
-    assert k["kThreads"] == 128 and k["kBinsPerThread"] * 128 == coeffs
+    nbmax, tuples, w = 128, C.LONG_COEFFS // 4, k["kWarps"]
+    used = (16 * tuples + 8 * w * tuples + 16 * tuples
+            + 4 * (81 + 2 * 33 * 33) + 4 * k["kLenSf"]
+            + 4 * k["kAllConsts"] + 4 * nbmax + 4 * (nbmax + 1)
+            + 3 * tuples + 2 * nbmax + 2 * 4 * (w + 1) + 4 * w + 4 * w
+            + 4 * 2 * w)
+    assert used == 28120
+    assert used < 48 * 1024
+    assert k["kMinBlocks"] == 7
+    assert k["kMinBlocks"] * (used + 1024) <= 227 * 1024
+    assert k["kThreads"] == 128
+    # registers in 8-register steps: 72 a thread for 7 blocks of 128
+    assert k["kMinBlocks"] * k["kThreads"] * 72 <= 65536 < (
+        k["kMinBlocks"] * k["kThreads"] * 80)
 
 
 def _touch(path, t):

@@ -15,11 +15,12 @@ K4 (ops/kernels/rd_loop.py) has no Pallas counterpart either; its plain
 version `rd.rd_loop_plain` is held against the JAX and spec RD loops in
 tests/test_torch_rd_loop.py, and here (on a card) the kernel against it at
 1, 31, 4096 and 8192 frames, all three rates, the RD corners and 20
-repeats. Tests marked `cuda` need a card and
-skip here; the machine with the card has no JAX, so this module imports
-JAX only inside the tests that compare against it, and there the tests
-run as `MRC_TESTS_KEEP_TPU=1 python -m pytest tests/test_torch_kernels.py
--m cuda` (the variable skips conftest's JAX set-up).
+repeats, and its |q|^(4/3) table built on the card against the CPU's.
+Tests marked `cuda` need a card and skip here; the machine with the card
+has no JAX, so this module imports JAX only inside the tests that compare
+against it, and there the tests run as `MRC_TESTS_KEEP_TPU=1 python -m
+pytest tests/test_torch_kernels.py -m cuda` (the variable skips conftest's
+JAX set-up).
 """
 import numpy as np
 import pytest
@@ -595,6 +596,19 @@ def test_rd_loop_kernel_repeats_identical_on_card():
     for _ in range(20):
         for g, w in zip(rd.rd_loop(*args, fs), first):
             assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_rd_loop_pow43_table_on_card_equals_cpu():
+    """K4's |q|^(4/3) table built on the card by quantize.dequantize's
+    torch ops, and the one the wrapper caches, equal the CPU-built table
+    bit for bit."""
+    _need_card()
+    cpu = rd_loop.pow43_table("cpu")
+    for card in (rd_loop.pow43_table("cuda"), rd_loop._dev_pow43("cuda:0")):
+        assert card.is_cuda and card.shape == cpu.shape
+        assert torch.equal(card.cpu().view(torch.int32),
+                           cpu.view(torch.int32))
 
 
 def test_rd_loop_kernel_rejects_cpu_and_bad_inputs():
