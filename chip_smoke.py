@@ -5,7 +5,7 @@
 
 Phases, in order; any failure raises, so the exit code is non-zero:
   1. card: name and power limit (nvidia-smi), CUDA version, capability 9.0
-  2. build: the main path's four CUDA kernels from csrc/ (nvcc, one
+  2. build: the main path's eight CUDA kernels from csrc/ (nvcc, one
      process per source started together, -Xptxas -v per kernel); K4's
      blocks resident an SM (the occupancy calculator), at least 7
   3. kernels against their plain PyTorch versions, bitwise:
@@ -26,7 +26,13 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      millionth, so frames run every outer iteration), with how many frames
      reach each corner, on the CPU too for 256 rows of each, and 20
      repeated launches giving the same outputs; K4's |q|^(4/3) table
-     built on the card == built on the CPU
+     built on the card == built on the CPU; the analysis kernels K5
+     transients, K6 analysis_pre, K7 mdct_post and K8 psycho on the 30 s
+     clip's chunk, a 64 x 10 s corpus chunk with pad frames, a config 3
+     chunk (48 kHz), 32 kHz, the kbd window, window switching off, full
+     psycho off, an all-silent chunk, a transient-dense chunk (SHORT
+     frames) and strided rows, and the whole kernel path of
+     encoder._analyze_chunk on the card == the eager chain on the CPU
   4. on those captured inputs, each kernel's time (CUDA events, and the
      profiler's device time per launch) beside its plain version's, one
      PyTorch library call where one exists (torch.fft.fft for K1) and the
@@ -36,7 +42,7 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      30 s chunk at its own and at a millionth of its allowed noise, the
      time of one outer iteration from them, and the OUTER_MAX set cut to
      132 ... 2586 rows (latency or issue); the SASS instruction mix of
-     K1-K4
+     K1-K8
   5. goldens g1-g6 encoded on the card (records built by K3) against their
      SHA-256 digests; each decoded on the card and on the CPU, PCM bitwise
      equal
@@ -45,7 +51,8 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      decodes equal
   7. full size: the benchmark clip (30 s stereo 44.1 kHz 128 kbps, int16)
      encoded and decoded on the card, kernel launch counts of that run (K4
-     once and K2 twice a chunk, no RD host sync, no plain RD loop; the
+     once and K2 twice a chunk, K5-K8 once and K1 four times a chunk in
+     the encode, no RD host sync, no plain RD loop; the
      plain path's host syncs on the same clip beside them), then one
      warm-up and 5 timed runs of each
   8. where the time goes: host-clock ms per encode/decode stage (the pack
@@ -53,8 +60,11 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      of the compact stream body and assemble, beside the host-pack path,
      with the bytes each downloads),
      and the card's busy share
-     with the top kernels (torch.profiler), with K1-K4's
-     launches and device ms in one encode and one decode; decide_chunk on
+     with the top kernels (torch.profiler), with K1-K8's
+     launches and device ms in one encode and one decode; the analysis
+     alone (_analyze_chunk on the clip's chunk): its launch count and
+     device events (K5, K6, K1 x 4, K7, K8 and nothing else), device ms,
+     best wall and busy share; decide_chunk on
      the clip's chunk with K4, with the loop in its plain version (the
      parent's path) and with every kernel plain, in turns: wall, device
      ms, host syncs
@@ -71,19 +81,19 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      counts of that run; every stream == the clip's single-clip card
      encode, and a 5-clip mixed-length bucket too; wall time (5 timed runs
      after a warm-up), real-time factor, frames/s, peak device memory and
-     the card's busy share
+     the card's busy share, and the device time outside K1-K8
  11. the CLI: python -m mrcaudiocodec_tpu_torch.cli encode, info, decode in
      subprocesses on a WAV the script writes; the .mrc bytes == codec.encode
      and the WAV == codec.decode on the card
  12. the parallel path (parallel/), on the card: acceptance config 3 (5 min
      48 kHz stereo 192 kbps) encoded on the card == its card encode with
-     K1-K4 swapped for their plain versions; (a) sharded encode, every
+     K1-K8 swapped for their plain versions; (a) sharded encode, every
      shard in turn in this process (LocalShards): the 30 s clip at (data,
      seq) = (1, 4), (2, 2), (2, 1) == codec.encode, config 3 at (1, 4) ==
      its unsharded encode, the 64 x 10 s batch at (4, 2) == phase 10's
      streams; (b) sharded decode of the 30 s stream at (1, 4), (2, 2) ==
-     codec.decode float32 bitwise; the K1-K4 launch counts of (a) and of
-     (b); K1-K4 held bitwise to their plain versions on the inputs the
+     codec.decode float32 bitwise; the K1-K8 launch counts of (a) and of
+     (b); K1-K8 held bitwise to their plain versions on the inputs the
      (1, 4) encodes and decode gave them (captured at the wrappers, every
      shard's); walls of (a) at (1, 4) beside the unsharded encode; (c)
      corpus.encode_batch over devices ["cuda:0", "cuda:0"] == the
@@ -96,7 +106,7 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      host-clock ms)
  13. the bench: mrcaudiocodec_tpu_torch.bench.main(["--full", "--kernels"])
      in this process at its default sizes (the 30 s clip, the spec on
-     4 s), with K1-K4's launch counts around it and their plain versions
+     4 s), with K1-K8's launch counts around it and their plain versions
      counted too (none may run); its JSON line has the root bench.py's 11
      keys, the stream equals the port's spec's, segSNR and PSNR equal the
      spec's; every value logged beside the card's name and power limit
@@ -204,7 +214,9 @@ def full_clip():
             to_i16(make_clip(44100, 30.0, 2)))
 
 
-KERNELS = ("fft_stages", "quant_cost", "record_pack", "rd_loop")
+KERNELS = ("fft_stages", "quant_cost", "record_pack", "rd_loop",
+           "transients", "analysis_pre", "mdct_post", "psycho")
+ANALYSIS = KERNELS[4:]
 
 
 def rd_loop_plain_all(*args):
@@ -215,11 +227,19 @@ def rd_loop_plain_all(*args):
 
 
 def kernel_pair(name):
-    """(kernel wrapper, plain version) of K1, K2, K3 or K4 by name."""
+    """(kernel wrapper, plain version) of K1-K8 by name."""
     from mrcaudiocodec_tpu_torch.ops import device_pack
-    from mrcaudiocodec_tpu_torch.ops.kernels import (fft_stages, quant_cost,
-                                                     rd_loop, record_pack)
+    from mrcaudiocodec_tpu_torch.ops.kernels import (
+        analysis_pre, fft_stages, mdct_post, psycho, quant_cost, rd_loop,
+        record_pack, transients)
     return {"fft_stages": (fft_stages.fft_kernel, fft_stages.fft_plain),
+            "transients": (transients.transients_kernel,
+                           transients.transients_plain),
+            "analysis_pre": (analysis_pre.analysis_pre_kernel,
+                             analysis_pre.analysis_pre_plain),
+            "mdct_post": (mdct_post.mdct_post_kernel,
+                          mdct_post.mdct_post_plain),
+            "psycho": (psycho.psycho_kernel, psycho.psycho_plain),
             "quant_cost": (quant_cost.payload_bits_kernel,
                            quant_cost.payload_bits_plain),
             "record_pack": (record_pack.pack_stream_kernel,
@@ -228,14 +248,16 @@ def kernel_pair(name):
 
 
 def kernel_modules():
-    """The kernel wrappers' modules, K1-K4 in order."""
-    from mrcaudiocodec_tpu_torch.ops.kernels import (fft_stages, quant_cost,
-                                                     rd_loop, record_pack)
-    return (fft_stages, quant_cost, record_pack, rd_loop)
+    """The kernel wrappers' modules, K1-K8 in order."""
+    from mrcaudiocodec_tpu_torch.ops.kernels import (
+        analysis_pre, fft_stages, mdct_post, psycho, quant_cost, rd_loop,
+        record_pack, transients)
+    return (fft_stages, quant_cost, record_pack, rd_loop, transients,
+            analysis_pre, mdct_post, psycho)
 
 
 def plain_path(run, names=KERNELS):
-    """run() with the named kernels' wrappers (default K1-K4) replaced by
+    """run() with the named kernels' wrappers (default K1-K8) replaced by
     their plain PyTorch versions (on the same card) -> what run()
     returns. K4's plain version takes its payloads from K2's wrapper, so
     names=("rd_loop",) is the path before K4: the loop in PyTorch, K2 for
@@ -243,7 +265,8 @@ def plain_path(run, names=KERNELS):
     from mrcaudiocodec_tpu_torch.ops import rd
     attrs = {"fft_stages": "fft_kernel", "quant_cost": "payload_bits_kernel",
              "record_pack": "pack_stream_kernel",
-             "rd_loop": "rd_loop_kernel"}
+             "rd_loop": "rd_loop_kernel", **{n: f"{n}_kernel"
+                                             for n in ANALYSIS}}
     mods = dict(zip(KERNELS, kernel_modules()))
     swaps = [(mods[n], attrs[n], n) for n in names]
     saved = [getattr(mod, attr) for mod, attr, _ in swaps]
@@ -274,7 +297,7 @@ def hold_to_plain(caps, where, err):
 
 
 def main_path_inputs(dev):
-    """The inputs K1-K4 get on the main path, captured at their wrappers:
+    """The inputs K1-K8 get on the main path, captured at their wrappers:
     {"encode": one encode of the 30 s stereo clip (one chunk of 1293
     frames x 2 rows = 2586 frame rows), "decode": its decode (chunks of
     1024 and 269 frames x 2 rows), "corpus": one 64 x 10 s stereo batch
@@ -306,7 +329,9 @@ def main_path_inputs(dev):
     for where, r in rows.items():
         log(f"[kernels] {where}: {r} frame rows a chunk")
         for key in (("quant_cost", (r, 32)), ("quant_cost", (r, 8)),
-                    ("rd_loop", (r,)), ("record_pack", (r,))):
+                    ("rd_loop", (r,)), ("record_pack", (r,)),
+                    ("analysis_pre", (r,)), ("mdct_post", (r,)),
+                    ("psycho", (r,))):
             check(key in out[where], f"{where}: no kernel input at {key}")
     return out
 
@@ -345,7 +370,9 @@ def phase_build():
         "dynamic shared memory per warp of 128 B plus two staging buffers "
         "of cap rounded up to 4 B, warps per block from the cap "
         "(record_pack.warps_per_block); rd_loop: static shared memory "
-        "for one frame a block (ptxas above)")
+        "for one frame a block (ptxas above); transients, analysis_pre, "
+        "psycho: static shared memory (ptxas above), one block a tile of "
+        "30 frames (K5) or a frame (K6, K8); mdct_post: none")
     from mrcaudiocodec_tpu_torch.ops.kernels import rd_loop
     resident = rd_loop.blocks_per_sm()
     log(f"[build] rd_loop: {resident} blocks (of 128 threads) resident an "
@@ -412,6 +439,7 @@ def phase_kernels(dev):
                     f"kernel == plain bitwise: {ok}")
                 check(ok, f"quant_cost fs={fs} G={g} amp={amp_kind} differs")
     err["record_pack"] = phase_kernels_record_pack(dev, rng)
+    phase_analysis(dev, err)
     # the four kernels on the inputs the main path gives them
     inputs = main_path_inputs(dev)
     for where, caps in inputs.items():
@@ -537,6 +565,147 @@ def phase_kernels_rd_loop(dev, inputs, err):
         f"({base[0].shape[0]} rows) identical to the first: {same}/20")
     check(same == 20, "rd_loop gave different outputs on a repeat")
     return {"30 s chunk": base, **sets}
+
+
+def analysis_cases():
+    """The analysis kernels' input chunks -> [(name, cfg, hop rows [R,
+    (s + 3) * HOP] as numpy, row slice or None)]: the 30 s clip's chunk
+    (2586 frame rows); the 64 x 10 s corpus batch's last chunk (8192 frame
+    rows, with the bucket's silent pad frames); config 3's second chunk
+    (48 kHz stereo 192 kbps); 32 kHz; the kbd window; window switching
+    off; full psycho off; an all-silent chunk; a chunk dense with
+    transients (SHORT frames); and the 30 s rows as a column slice of the
+    whole padded clip, as the sharded path hands them over (rows with a
+    stride of their own)."""
+    from mrcaudiocodec_tpu_torch import config as C
+    from mrcaudiocodec_tpu_torch import corpus
+    from mrcaudiocodec_tpu_torch.bench import make_clip, to_i16
+    from mrcaudiocodec_tpu_torch.config import CodecConfig
+    from mrcaudiocodec_tpu_torch.models import encoder
+
+    def chunk(x, cfg, which=0):
+        nf = C.frames_for_samples(x.shape[0])
+        P = encoder._padded_rows(x, nf)
+        spans = encoder.chunk_spans(nf, P.shape[0])
+        f0, s = spans[which]
+        return P[:, f0 * C.HOP:(f0 + s + 3) * C.HOP]
+
+    cfg, xi = full_clip()
+    cases = [("30 s clip", cfg, chunk(xi, cfg), None)]
+    clips = corpus._synth_corpus(64, 10.0)
+    nch = 2
+    nf_list = [C.frames_for_samples(c.shape[0]) for c in clips]
+    nf = -(-max(nf_list) // corpus.FRAME_BUCKET) * corpus.FRAME_BUCKET
+    P = np.zeros((len(clips) * nch, (nf + 6) * C.HOP), np.float32)
+    for i, c in enumerate(clips):
+        P[i * nch:(i + 1) * nch, 2 * C.HOP:2 * C.HOP + c.shape[0]] = c.T
+    f0, s = encoder.chunk_spans(nf, P.shape[0])[-1]
+    check(f0 + s > max(nf_list), "the corpus chunk holds no pad frame")
+    cases.append(("64 x 10 s corpus, last chunk (pad frames)", cfg,
+                  P[:, f0 * C.HOP:(f0 + s + 3) * C.HOP], None))
+    cfg3 = CodecConfig(fs=48000, channels=2, bitrate=192000)
+    cases.append(("config 3 (48 kHz, 192 kbps), second chunk", cfg3,
+                  chunk(to_i16(make_clip(48000, 120.0, 2, seed=3)), cfg3,
+                        1), None))
+    x10 = to_i16(make_clip(44100, 10.0, 2, seed=7))
+    for name, fs, kw in (("32 kHz", 32000, {}), ("kbd window", 44100,
+                                                 {"window": "kbd"}),
+                         ("window switching off", 44100,
+                          {"window_switching": False}),
+                         ("full psycho off", 44100, {"full_psycho": False})):
+        c = CodecConfig(fs=fs, channels=2, bitrate=128000, **kw)
+        x = x10 if fs == 44100 else to_i16(make_clip(fs, 10.0, 2, seed=8))
+        cases.append((name, c, chunk(x, c), None))
+    cases.append(("all silent", cfg, chunk(np.zeros((44100 * 5, 2),
+                                                    np.int16), cfg), None))
+    rng = np.random.default_rng(11)
+    xt = (0.01 * rng.standard_normal((44100 * 5, 2))).astype(np.float32)
+    for pos in range(300, xt.shape[0] - 200, 1500):
+        xt[pos:pos + 40] += (0.8 * rng.standard_normal((40, 2))).astype(
+            np.float32)
+    cases.append(("transient-dense", cfg, chunk(np.clip(xt, -1, 1), cfg),
+                  None))
+    nf30 = C.frames_for_samples(xi.shape[0])
+    cases.append(("30 s rows as a strided slice (frames 100-599)", cfg,
+                  encoder._padded_rows(xi, nf30),
+                  slice(100 * C.HOP, (100 + 500 + 3) * C.HOP)))
+    return cases
+
+
+def phase_analysis(dev, err):
+    """K5-K8 against their plain versions on the card, bitwise, on each
+    of analysis_cases(): K5 on the hop rows; K6 on the rows and the plain
+    block types; K7 and K8 on K1's outputs of K6's plain outputs (K8 with
+    the plain coefficients); then the whole kernel path of
+    encoder._analyze_chunk on the card against the eager chain on the
+    CPU, every output. err: max |err| by kernel, updated."""
+    import torch
+    from mrcaudiocodec_tpu_torch import config as C
+    from mrcaudiocodec_tpu_torch.models import encoder
+    from mrcaudiocodec_tpu_torch.ops.kernels import (
+        analysis_pre, fft_stages, mdct_post, psycho, transients)
+    for name in ANALYSIS:
+        err.setdefault(name, 0.0)
+
+    def hold(kname, where, got, want):
+        got, want = outputs(kname, got, want)
+        ok = all(bits_equal(g, w) for g, w in zip(got, want))
+        e = max(max_abs_err(g, w) for g, w in zip(got, want))
+        err[kname] = max(err[kname], e)
+        if not ok:
+            for i, (g, w) in enumerate(zip(got, want)):
+                g, w = g.cpu(), w.cpu()
+                if g.dtype == torch.float32:
+                    g, w = g.view(torch.int32), w.view(torch.int32)
+                bad = (g != w).nonzero()
+                if len(bad):
+                    idx = tuple(bad[0].tolist())
+                    log(f"[analysis] {kname} {where}: output {i} differs at "
+                        f"{len(bad)} places, first {idx}: kernel "
+                        f"{got[i].cpu()[idx].item()!r} plain "
+                        f"{want[i].cpu()[idx].item()!r}")
+        return ok
+
+    t0 = time.perf_counter()
+    for name, cfg, rows, cols in analysis_cases():
+        full = torch.from_numpy(np.ascontiguousarray(rows)).to(dev)
+        audio = full if cols is None else full[:, cols]
+        r, s = audio.shape[0], audio.shape[1] // C.HOP - 3
+        ws = cfg.window_switching
+        bt_p = transients.transients_plain(audio, ws)
+        ok = {"transients": hold("transients", name,
+                                 transients.transients_kernel(audio, ws),
+                                 bt_p)}
+        pre_p = analysis_pre.analysis_pre_plain(audio, bt_p, cfg.window)
+        ok["analysis_pre"] = hold(
+            "analysis_pre", name,
+            analysis_pre.analysis_pre_kernel(audio, bt_p, cfg.window),
+            pre_p)
+        spec = [fft_stages.fft_kernel(pre_p[i], pre_p[i + 1])
+                for i in range(0, 8, 2)]
+        btf = bt_p.reshape(-1)
+        co_p = mdct_post.mdct_post_plain(*spec[0], *spec[1], btf)
+        ok["mdct_post"] = hold(
+            "mdct_post", name,
+            mdct_post.mdct_post_kernel(*spec[0], *spec[1], btf), co_p)
+        args = (*spec[2], *spec[3], co_p, btf, cfg.fs, cfg.full_psycho)
+        ok["psycho"] = hold("psycho", name, psycho.psycho_kernel(*args),
+                            psycho.psycho_plain(*args))
+        card = encoder._analyze_chunk(audio, cfg)
+        cpu = encoder._analyze_chunk(audio.cpu(), cfg)
+        torch.cuda.synchronize()
+        ok["card == CPU"] = all(bits_equal(a, b) for a, b in zip(card, cpu))
+        n_short = int((bt_p == C.SHORT).sum())
+        log(f"[analysis] {name}: {r} rows x {s} frames "
+            f"({'int16' if audio.dtype == torch.int16 else 'f32'}, fs "
+            f"{cfg.fs}, {cfg.window}, window switching {ws}, full psycho "
+            f"{cfg.full_psycho}; {n_short} SHORT frames): kernel == plain "
+            f"bitwise {json.dumps(ok)}")
+        for k, v in ok.items():
+            check(v, f"{k} differs on '{name}'")
+        del full, audio, pre_p, spec, card, cpu
+    torch.cuda.empty_cache()
+    log(f"[analysis] every case held in {time.perf_counter() - t0:.1f} s")
 
 
 def outputs(name, got, want):
@@ -752,9 +921,16 @@ def phase_full(dev):
     log(f"[full] launches in one encode ({chunks} chunk): {enc_launch}; in "
         f"one decode: {dec_launch}; RD loop-exit host syncs in the encode: "
         f"{syncs}, plain RD loops run: {plain_loops[0]}; the same encode "
-        f"with K1-K4 plain: {plain_syncs} host syncs, stream equal: "
+        f"with K1-K8 plain: {plain_syncs} host syncs, stream equal: "
         f"{bs_plain == bs}")
-    check(enc_launch["fft_stages"] > 0, "encode launched no fft_stages")
+    check(enc_launch["fft_stages"] == 4 * chunks,
+          f"encode launched fft_stages {enc_launch['fft_stages']} times, "
+          f"not 4 a chunk (the analysis' four layouts)")
+    for name in ANALYSIS:
+        check(enc_launch[name] == chunks,
+              f"encode launched {name} {enc_launch[name]} times, not once "
+              f"a chunk")
+        check(dec_launch[name] == 0, f"decode launched {name}")
     check(enc_launch["quant_cost"] == 2 * chunks,
           f"encode launched quant_cost {enc_launch['quant_cost']} times, "
           f"not twice a chunk")
@@ -798,6 +974,25 @@ def phase_full(dev):
         f"decode {dec_peak} B")
     launches = {k: enc_launch[k] + dec_launch[k] for k in enc_launch}
     return launches, stats
+
+
+def profile_once(fn):
+    """torch.profiler (CUDA activity) over one call of fn(), the trace
+    opened with fills that fn() does not launch, since a trace can miss
+    a session's first launches -> (the profiler, [(event name, device ms,
+    count)] of the device events fn() ran, fills left out)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pad = torch.empty(1024, device="cuda")
+        for _ in range(50):
+            pad.fill_(1.0)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, getattr(e, "self_device_time_total", 0) / 1e3, e.count)
+            for e in prof.key_averages()]
+    return prof, [r for r in rows if r[1] > 0 and "FillFunctor" not in r[0]]
 
 
 def phase_breakdown(dev):
@@ -887,7 +1082,6 @@ def phase_breakdown(dev):
     # busy share = device time (the profiler's kernel and copy times) over
     # the best UNprofiled wall time: the profiled run's own wall time
     # includes the profiler's start-up
-    from torch.profiler import ProfilerActivity, profile
     for name, fn in (("encode", lambda: codec.encode(xi, cfg, device=dev)),
                      ("decode", lambda: codec.decode(bs, device=dev,
                                                      pcm_dtype="int16"))):
@@ -898,12 +1092,8 @@ def phase_breakdown(dev):
             fn()
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        rows = [(e.key, getattr(e, "self_device_time_total", 0) / 1e3,
-                 e.count) for e in prof.key_averages()]
-        rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
+        prof, rows = profile_once(fn)
+        rows = sorted(rows, key=lambda r: -r[1])
         busy = sum(r[1] for r in rows)
         if busy == 0:
             log(f"[profile] {name}: device time not measured (the profiler "
@@ -920,6 +1110,42 @@ def phase_breakdown(dev):
             f"K{i + 1} {k} {tot[k + '_kernel'][0]} launches, "
             f"{tot[k + '_kernel'][1]:.4f} ms device"
             for i, k in enumerate(KERNELS)))
+
+    # the analysis of the clip's chunk alone: its device events, one
+    # profiled call (each kernel's launches, every other event by name),
+    # beside its best wall of 5 after a warm-up
+    sl = encoder.upload_chunk(P, spans[0][0], spans[0][1], dev)
+    walls = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        encoder._analyze_chunk(sl, cfg)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    mods = kernel_modules()
+    for k in mods:
+        k.launches = 0
+    prof, rows = profile_once(lambda: encoder._analyze_chunk(sl, cfg))
+    counts = {k.__name__.rsplit(".", 1)[-1]: k.launches for k in mods}
+    events = sum(r[2] for r in rows)
+    dms = sum(r[1] for r in rows)
+    tot = kernel_device_totals(prof, [f"{k}_kernel" for k in KERNELS])
+    named = {k: tot[f"{k}_kernel"] for k in KERNELS if tot[f"{k}_kernel"][0]}
+    other = [(k[:60], c) for k, _, c in rows
+             if not any(f"{n}_kernel" in k for n in KERNELS)]
+    best = min(walls[1:])
+    log(f"[breakdown] _analyze_chunk ({spans[0][1]} frames x "
+        f"{cfg.channels} rows) on the card: {events} device events "
+        f"(launch count), {dms:.4f} ms device, best wall {best:.3f} ms of "
+        f"5 (ms {[round(w, 3) for w in walls[1:]]}), busy share "
+        f"{dms / best:.3f}; kernels (launches, device ms) "
+        f"{json.dumps(named)}; other events {other}; launch counts "
+        f"{counts}")
+    want = {**{k: 0 for k in KERNELS}, "fft_stages": 4,
+            **{k: 1 for k in ANALYSIS}}
+    check(counts == want and not other,
+          f"the analysis launched {counts} and ran other device events "
+          f"{other}, not K5, K6, K1 x 4, K7 and K8 alone")
 
     # decide_chunk on the clip's chunk: with K4; with the loop in its
     # plain version and K2 for every sweep (the path before K4); with
@@ -1127,7 +1353,7 @@ MIX_CLASSES = {
 
 
 def log_instruction_mix():
-    """Each K1-K4 kernel's SASS instructions (cuobjdump -sass), by
+    """Each K1-K8 kernel's SASS instructions (cuobjdump -sass), by
     class: the static counts the device times are read against (K1's
     kernels are straight-line code, K2's gain loop is unrolled over a
     lane's 8 tuples, 32 bins, K3's over a lane's 16 pairs, twice; K4
@@ -1419,12 +1645,9 @@ def phase_corpus(dev):
         corpus.encode_batch(clips, cfg, device=dev)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        corpus.encode_batch(clips, cfg, device=dev)
-        torch.cuda.synchronize()
-    busy = sum(getattr(e, "self_device_time_total", 0)
-               for e in prof.key_averages()) / 1e3
+    prof, rows = profile_once(
+        lambda: corpus.encode_batch(clips, cfg, device=dev))
+    busy = sum(r[1] for r in rows)
     tot = kernel_device_totals(prof, [f"{k}_kernel" for k in KERNELS])
     audio = sum(x.shape[0] for x in clips) / cfg.fs
     frames = sum(frames_for_samples(x.shape[0]) for x in clips) * cfg.channels
@@ -1437,13 +1660,18 @@ def phase_corpus(dev):
              "busy_share": busy / best if busy else None,
              "launches": launches,
              "kernel_device": {k: tot[f"{k}_kernel"] for k in KERNELS}}
+    kern = sum(ms for _, ms in stats["kernel_device"].values())
+    stats["outside_kernels_ms"] = busy - kern
+    log(f"[corpus] device time outside K1-K8: {busy - kern:.2f} ms of "
+        f"{busy:.2f} ({(busy - kern) / busy:.3f} of it); K1-K8 "
+        f"{kern:.2f} ms")
     log(f"[corpus] wall ms {walls} (best {best:.1f}, median "
         f"{stats['median_ms']:.1f}); RTF {stats['realtime_factor']:.1f}x; "
         f"{stats['frames_per_second']:.0f} frames/s; device time "
         f"{busy:.2f} ms in one profiled batch, busy share "
-        f"{stats['busy_share']}; K1 {tot['fft_stages_kernel']}, K2 "
-        f"{tot['quant_cost_kernel']}, K3 {tot['record_pack_kernel']}, K4 "
-        f"{tot['rd_loop_kernel']} (launches, device ms)")
+        f"{stats['busy_share']}; " + ", ".join(
+            f"K{i + 1} {tot[k + '_kernel']}" for i, k in enumerate(KERNELS))
+        + " (launches, device ms)")
     return launches, stats, outs
 
 
@@ -1599,7 +1827,7 @@ def phase_parallel(dev, corpus_streams, err):
     t0 = time.perf_counter()
     plain3 = plain_path(lambda: codec.encode(x3, cfg3, device=dev))
     log(f"[parallel] config 3 card stream == the card encode through the "
-        f"plain versions of K1-K4: {want3 == plain3} (plain run "
+        f"plain versions of K1-K8: {want3 == plain3} (plain run "
         f"{time.perf_counter() - t0:.2f} s host clock)")
     check(want3 == plain3, "config 3's card stream differs from its plain "
           "encode")
@@ -1832,7 +2060,8 @@ def phase_bench(smi):
     kernels = kernel_modules()
     fft_stages, quant_cost = kernels[:2]
     plains = ((fft_stages, "fft_plain"), (quant_cost, "payload_bits_plain"),
-              (device_pack, "pack_stream_plain"), (rd, "rd_loop_plain"))
+              (device_pack, "pack_stream_plain"), (rd, "rd_loop_plain"),
+              *((m, f"{n}_plain") for m, n in zip(kernels[4:], ANALYSIS)))
     plain_calls = {attr: 0 for _, attr in plains}
     saved = [getattr(mod, attr) for mod, attr in plains]
     for (mod, attr), orig in zip(plains, saved):
@@ -1858,7 +2087,7 @@ def phase_bench(smi):
     launches = {k.__name__.rsplit(".", 1)[-1]: k.launches for k in kernels}
     lines = out.getvalue().strip().splitlines()
     log(f"[bench] bench.main(['--full', '--kernels']): exit {rc} in "
-        f"{dt:.1f} s; K1-K4 launches {launches}; plain versions called "
+        f"{dt:.1f} s; K1-K8 launches {launches}; plain versions called "
         f"{plain_calls}; stdout {lines}")
     check(rc == 0 and len(lines) == 1, "the bench did not print one line")
     res = json.loads(lines[0])
@@ -1922,6 +2151,24 @@ def main() -> int:
                     "mrcaudiocodec_tpu/ops/rd.py:189, :200, :255-269 "
                     "(refine lax.while_loop, fallback lax.cond, outer "
                     "lax.while_loop; XLA, no pallas_call)"),
+        "transients": ("cuda", "mrcaudiocodec_tpu_torch/csrc/transients.cu",
+                       "mrcaudiocodec_tpu/models/encoder.py:65-120 (jit A: "
+                       "framing :93-104, dsp.detect_transients :105, "
+                       "_block_types_dev :51; XLA, no pallas_call)"),
+        "analysis_pre": ("cuda",
+                         "mrcaudiocodec_tpu_torch/csrc/analysis_pre.cu",
+                         "mrcaudiocodec_tpu/models/encoder.py:65-120 (jit A; "
+                         "native/xmath_ffi.cpp mode 1 and "
+                         "native/xpsy_ffi.cpp modes 0-1, before the FFT; "
+                         "no pallas_call)"),
+        "mdct_post": ("cuda", "mrcaudiocodec_tpu_torch/csrc/mdct_post.cu",
+                      "mrcaudiocodec_tpu/models/encoder.py:65-120 (jit A; "
+                      "native/xmath_ffi.cpp mode 1 after the FFT, "
+                      "dsp.analyze's select; no pallas_call)"),
+        "psycho": ("cuda", "mrcaudiocodec_tpu_torch/csrc/psycho.cu",
+                   "mrcaudiocodec_tpu/models/encoder.py:65-120 (jit A; "
+                   "ops/psycho.py:186 analyze after the FFTs, "
+                   "native/xpsy_ffi.cpp modes 0-2; no pallas_call)"),
     }
     kernels = []
     for name, (route, source, replaces) in meta.items():

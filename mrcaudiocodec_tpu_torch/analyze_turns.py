@@ -1,0 +1,203 @@
+"""The encoder's analysis stage beside another version's, in turns.
+
+    python -m mrcaudiocodec_tpu_torch.analyze_turns BASE_DIR
+
+BASE_DIR holds another version of this package, importable under
+BASE_DIR's own name (for example a parent commit's, unpacked with `git
+archive <commit> mrcaudiocodec_tpu_torch` and renamed); its kernels build
+from its own csrc/ into its own build/. Both versions must give the same
+outputs: `encoder._analyze_chunk` on the 30 s stereo 44.1 kHz 128 kbps
+int16 clip's chunk (2586 frame rows) and on the first chunk of the 64 x
+10 s corpus batch (8192 frame rows), the clip's stream and the batch's
+streams. Then, in turns (base, this, this, base, ROUNDS times):
+  * each chunk's `_analyze_chunk`: host-clock ms a call (CALLS calls
+    closed by a synchronize), device ms a call (the profiler's kernel
+    times), device events a call;
+  * the 30 s encode (`codec.encode`): wall ms (best of CALLS), and one
+    profiled encode's device ms and device events;
+  * the 64 x 10 s batch (`corpus.encode_batch`): wall ms, and one profiled
+    batch's device ms, with the part outside the version's own kernels
+    (K1-K4 for a base without the analysis kernels, K1-K8 here).
+Busy share = device ms over the turn's best unprofiled wall. One JSON
+line on stdout, logs on stderr, the card's name and power limit beside
+every number. Card only; exits 2 without one.
+"""
+from __future__ import annotations
+
+import argparse
+import importlib
+import json
+import os
+import sys
+import time
+
+import numpy as np
+
+ROUNDS = 3
+CALLS = 10
+KERNEL_NAMES = ("fft_stages", "quant_cost", "record_pack", "rd_loop",
+                "transients", "analysis_pre", "mdct_post", "psycho")
+
+
+def _sync():
+    import torch
+    torch.cuda.synchronize()
+
+
+def profiled(fn, names):
+    """One call of fn() under torch.profiler -> (device ms, device events,
+    device ms of the kernels whose names hold one of `names` + _kernel)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    _sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # open the trace with fills, which fn() does not launch
+        pad = torch.empty(1024, device="cuda")
+        for _ in range(20):
+            pad.fill_(1.0)
+        _sync()
+        fn()
+        _sync()
+    ms, events, kern = 0.0, 0, 0.0
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", 0) / 1e3
+        if t <= 0 or "FillFunctor" in e.key:
+            continue
+        ms += t
+        events += e.count
+        if any(f"{n}_kernel" in e.key for n in names):
+            kern += t
+    return ms, events, kern
+
+
+def wall_ms(fn, calls: int, best: bool):
+    """Host-clock ms of fn(): the mean over `calls` calls in one synchronized
+    run, or (best) the best of `calls` calls each closed by a synchronize."""
+    fn()
+    _sync()
+    if not best:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        _sync()
+        return (time.perf_counter() - t0) / calls * 1e3
+    out = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        _sync()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return min(out)
+
+
+def _same(a, b):
+    import torch
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("base", help="directory of the other package version")
+    a = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("analyze_turns: no CUDA card available", file=sys.stderr)
+        return 2
+    from . import config as C
+    from . import corpus
+    from .bench import make_clip, to_i16
+    from .config import CodecConfig
+    from .profiling import card_line, log
+    base_dir = os.path.abspath(a.base)
+    sys.path.insert(0, os.path.dirname(base_dir))
+    bname = os.path.basename(base_dir)
+    pkgs = {"base": bname, "this": __package__}
+    mods = {k: {m: importlib.import_module(f"{p}.{m}")
+                for m in ("models.encoder", "models.codec", "corpus")}
+            for k, p in pkgs.items()}
+    own = {}
+    for k, p in pkgs.items():
+        build = importlib.import_module(f"{p}.ops.kernels.build")
+        own[k] = tuple(n for n in KERNEL_NAMES if n in build.MAIN)
+    smi = card_line()
+    cfg = CodecConfig(fs=44100, channels=2, bitrate=128000)
+    xi = to_i16(make_clip(44100, 30.0, 2))
+    clips = corpus._synth_corpus(64, 10.0)
+    enc = mods["this"]["models.encoder"]
+    nf = C.frames_for_samples(xi.shape[0])
+    P = enc._padded_rows(xi, nf)
+    f0, s = enc.chunk_spans(nf, 2)[0]
+    chunks = {"30 s chunk (2586 rows)": (enc.upload_chunk(P, f0, s, "cuda"),
+                                          cfg)}
+    nfb = -(-C.frames_for_samples(clips[0].shape[0]) // corpus.FRAME_BUCKET
+            ) * corpus.FRAME_BUCKET
+    Pb = np.zeros((128, (nfb + 6) * C.HOP), np.float32)
+    for i, c in enumerate(clips):
+        Pb[2 * i:2 * i + 2, 2 * C.HOP:2 * C.HOP + c.shape[0]] = c.T
+    f0, s = enc.chunk_spans(nfb, 128)[0]
+    chunks["corpus chunk (8192 rows)"] = (enc.upload_chunk(Pb, f0, s,
+                                                           "cuda"), cfg)
+    cfgs = {k: importlib.import_module(f"{p}.config").CodecConfig(
+        fs=44100, channels=2, bitrate=128000) for k, p in pkgs.items()}
+
+    def runs(k):
+        e, c, co = (mods[k][m] for m in ("models.encoder", "models.codec",
+                                         "corpus"))
+        out = {f"analyze {n}": (lambda e=e, a=a: e._analyze_chunk(a,
+                                                                  cfgs[k]))
+               for n, (a, _) in chunks.items()}
+        out["encode 30 s"] = lambda c=c: c.encode(xi, cfgs[k],
+                                                  device="cuda")
+        out["batch 64 x 10 s"] = lambda co=co: co.encode_batch(
+            clips, cfgs[k], device="cuda")
+        return out
+
+    fns = {k: runs(k) for k in pkgs}
+    for name in fns["this"]:
+        got = {k: fns[k][name]() for k in pkgs}
+        _sync()
+        same = (got["base"] == got["this"] if not name.startswith("analyze")
+                else _same(got["base"], got["this"]))
+        log(f"[analyze turns] {name}: base == this: {same}")
+        if not same:
+            return 1
+    del got
+    res = {"card": smi, "base": base_dir, "rounds": ROUNDS, "calls": CALLS,
+           "runs": {}}
+    for name in fns["this"]:
+        rec = {k: {"wall_ms": [], "device_ms": [], "events": [],
+                   "kernel_ms": []} for k in pkgs}
+        for _ in range(ROUNDS):
+            for k in ("base", "this", "this", "base"):
+                fn = fns[k][name]
+                calls = CALLS if not name.startswith("batch") else 3
+                rec[k]["wall_ms"].append(wall_ms(
+                    fn, calls, best=not name.startswith("analyze")))
+                ms, ev, kern = profiled(fn, own[k])
+                rec[k]["device_ms"].append(ms)
+                rec[k]["events"].append(ev)
+                rec[k]["kernel_ms"].append(kern)
+        for k in pkgs:
+            r = rec[k]
+            r["best_wall_ms"] = min(r["wall_ms"])
+            r["median_wall_ms"] = float(np.median(r["wall_ms"]))
+            r["median_device_ms"] = float(np.median(r["device_ms"]))
+            r["busy_share"] = r["median_device_ms"] / r["best_wall_ms"]
+            r["outside_kernels_ms"] = float(np.median(
+                [d - q for d, q in zip(r["device_ms"], r["kernel_ms"])]))
+            r["kernels"] = own[k]
+        res["runs"][name] = rec
+        log(f"[analyze turns] {smi}; {name}: " + "; ".join(
+            f"{k}: wall ms {[round(w, 3) for w in rec[k]['wall_ms']]} "
+            f"(best {rec[k]['best_wall_ms']:.3f}), device ms median "
+            f"{rec[k]['median_device_ms']:.3f}, busy "
+            f"{rec[k]['busy_share']:.3f}, events {rec[k]['events']}, "
+            f"outside the {len(own[k])} kernels "
+            f"{rec[k]['outside_kernels_ms']:.3f} ms" for k in pkgs))
+    print(json.dumps(res))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -31,7 +31,7 @@ device_resident_rtf, stream_matches_spec) and logs on stderr:
   - --kernels (card only; run last, so that no profiler session precedes
     the timings above): on the --seconds clip's first chunk, staged on
     the card, the wall and profiler device ms per call of the encoder's
-    analysis, RD + codebook and pack stages, K1-K4's device ms in them
+    analysis, RD + codebook and pack stages, K1-K8's device ms in them
     against the card's bound, and K1 beside torch.fft.fft with their
     inputs in L2 and evicted from it.
 

@@ -4,7 +4,8 @@
           gives one row per channel of every clip
   device: per chunk of frames, all rows batched: int16 -> f32, framing
           with true neighbour transients across chunk edges, block types,
-          MDCT, psycho
+          MDCT, psycho (on the card the kernels K5-K8 around K1, which
+          read the uploaded rows in place)
   device: the integer bit-reservoir budget scan over each whole row
   device: per chunk: RD loop (the quantization-cost kernel K2), the
           per-band codebook choice, then the record bytes (the record-pack
@@ -68,7 +69,10 @@ def _analyze_chunk(audio_ext, cfg: CodecConfig):
 
     The two outer frames are the chunk's true neighbours (zeros outside
     the clip), so edge transients — and block types — equal the spec's.
-    int16 input becomes f32 as x * 2^-15 (exact)."""
+    int16 input becomes f32 as x * 2^-15 (exact). On the card the chunk
+    runs as kernels (`analyze_split`); on the CPU as the eager chain."""
+    if audio_ext.is_cuda:
+        return analyze_split(audio_ext, cfg)
     a = audio_ext
     if a.dtype == torch.int16:
         a = a.to(torch.float32) * (1.0 / 32768.0)
@@ -84,6 +88,27 @@ def _analyze_chunk(audio_ext, cfg: CodecConfig):
     coeffs = dsp.analyze(frames, btf, cfg.window)
     allowed, pe, _ = psycho.analyze(frames, coeffs, btf, cfg.fs,
                                     cfg.full_psycho)
+    return bt, coeffs, allowed, pe.reshape(r, s)
+
+
+def analyze_split(audio_ext, cfg: CodecConfig):
+    """`_analyze_chunk` as its kernels, which read the hop rows in place:
+    K5 the block types, K6 the four FFT inputs (long and short MDCT, long
+    and short psycho spectrum), K1 their FFTs, K7 the MDCT coefficients,
+    K8 the allowed noise and PE; 8 launches on the card. CPU tensors take
+    each kernel's plain version, with the same values."""
+    from ..ops.kernels import (analysis_pre, fft_stages, mdct_post,
+                               psycho as kpsy, transients)
+    r = audio_ext.shape[0]
+    s = audio_ext.shape[1] // C.HOP - 3
+    bt = transients.block_types(audio_ext, cfg.window_switching)   # [R, s]
+    btf = bt.reshape(-1)
+    pre = analysis_pre.analysis_pre(audio_ext, bt, cfg.window)
+    spec = [fft_stages.fft(pre[i], pre[i + 1]) for i in range(0, 8, 2)]
+    del pre
+    coeffs = mdct_post.mdct_post(*spec[0], *spec[1], btf)
+    allowed, pe, _ = kpsy.psycho(*spec[2], *spec[3], coeffs, btf, cfg.fs,
+                                 cfg.full_psycho)
     return bt, coeffs, allowed, pe.reshape(r, s)
 
 

@@ -3,7 +3,9 @@
 Every frame of a batch flows through both the long and the short path
 and the result is selected by block type. The MDCT/IMDCT chains are the
 pinned xmath sequence, with the FFT stages in the CUDA kernel K1
-(ops/kernels/fft_stages.py) on the card and its plain version on the CPU.
+(ops/kernels/fft_stages.py) on the card and its plain version on the CPU;
+on the card the MDCT's glue runs in K6 and K7 (ops/kernels/analysis_pre.py,
+mdct_post.py).
 Every float reduction is a pinned tree, so no value depends on the batch
 shape (the JAX package needed ops/blocking.py for that; the port does not).
 """
@@ -58,7 +60,16 @@ def short_subblocks(frames):
 
 def analyze(frames, bt, window: str = "sine"):
     """Batched MDCT: [F, 2048] + [F] block types -> [F, 1024]; SHORT frames
-    in group-major layout coeff[g*128 + k]."""
+    in group-major layout coeff[g*128 + k]. A CUDA tensor runs the kernels
+    K6 (window, fold, pre-twiddle), K1 and K7 (post-twiddle, select); a
+    CPU tensor the eager chain."""
+    if frames.is_cuda:
+        from .kernels import analysis_pre, fft_stages, mdct_post
+        btc = bt.to(torch.int32).contiguous()
+        pre = analysis_pre.analysis_pre(
+            frames.to(torch.float32).contiguous(), btc, window, "mdct")
+        return mdct_post.mdct_post(*fft_stages.fft(*pre[:2]),
+                                   *fft_stages.fft(*pre[2:]), btc)
     lw, sw = _windows(window, str(frames.device))
     fr = frames.to(torch.float32)
     xl = xmath.mdct_windowed_fast(fr, lw[bt.long()])

@@ -3,9 +3,9 @@
 The whole chain is the pinned f32 sequence of xpsy (normative rev 4), so
 the outputs are bitwise equal to the spec's on every device. Long and
 short analyses run for every frame and the result is selected by block
-type. The psycho power spectra (1024-point long, 128-point short) run
-their FFT stages through the CUDA kernel K1 on the card, so no plain FFT
-runs there.
+type. On the card `analyze` runs the kernels K6 (windowed FFT inputs),
+K1 (the FFTs) and K8 (everything after them); `thresholds` is the chain
+after the power spectra, K8's plain version's core.
 """
 from __future__ import annotations
 
@@ -40,17 +40,15 @@ def band_energy(coeffs, edges: tuple):
     return torch.where(_width_pos(edges, str(coeffs.device)), e, 0.0)
 
 
-def _family(fr, fs: int, long_block: bool, full_psycho: bool):
-    """[R, 2048] frames -> (band_t [R, nb], band_e [R, nb], pe [R])."""
-    cst = xpsy.dev_psy_tables(fs, long_block, str(fr.device))
-    if long_block:
-        p = xpsy.rfft_power(fr * cst["hann"])
-        band_t, band_e = xpsy.block_thresholds(p, cst, full_psycho)
-        return band_t, band_e, xpsy.band_pe(band_e, band_t, cst["width"])
-    p = xpsy.rfft_power(short_subblocks(fr) * cst["hann"])
+def _family(p, fs: int, long_block: bool, full_psycho: bool):
+    """Power spectra [F, 1024] (long) or [F, 8, 128] (short) -> (band_t
+    [F, nb], band_e [F, nb], pe [F]); short: 8 groups x nb group-major."""
+    cst = xpsy.dev_psy_tables(fs, long_block, str(p.device))
     band_t, band_e = xpsy.block_thresholds(p, cst, full_psycho)
+    if long_block:
+        return band_t, band_e, xpsy.band_pe(band_e, band_t, cst["width"])
     pe = xpsy.groups_pe(band_e, band_t, cst["width"])
-    nf = fr.shape[0]
+    nf = p.shape[0]
     return band_t.reshape(nf, -1), band_e.reshape(nf, -1), pe
 
 
@@ -59,12 +57,14 @@ def _pad(v, nb: int, value: float):
                      dim=-1)
 
 
-def analyze(frames, coeffs, bt, fs: int, full_psycho: bool = True):
-    """Batched psycho -> (allowed [F, NB], pe [F], e_mdct [F, NB])."""
+def thresholds(p_long, p_short, coeffs, bt, fs: int,
+               full_psycho: bool = True):
+    """The chain after the power spectra: both families' thresholds and
+    PE, selected by block type, the MDCT band energies and the allowed
+    noise -> (allowed [F, NB], pe [F], e_mdct [F, NB])."""
     nb = T.unified_layout(fs)["nb"]
-    fr = frames.to(torch.float32)
-    t_l, e_l, pe_l = _family(fr, fs, True, full_psycho)
-    t_s, e_s, pe_s = _family(fr, fs, False, full_psycho)
+    t_l, e_l, pe_l = _family(p_long, fs, True, full_psycho)
+    t_s, e_s, pe_s = _family(p_short, fs, False, full_psycho)
     is_short = bt == C.SHORT
     t_full = torch.where(is_short[:, None], _pad(t_s, nb, xpsy.BIG),
                          _pad(t_l, nb, xpsy.BIG))
@@ -77,3 +77,23 @@ def analyze(frames, coeffs, bt, fs: int, full_psycho: bool = True):
                          band_energy(co, le))
     allowed = xpsy.allowed_noise(e_mdct, e_full, t_full)
     return allowed, pe, e_mdct
+
+
+def analyze(frames, coeffs, bt, fs: int, full_psycho: bool = True):
+    """Batched psycho -> (allowed [F, NB], pe [F], e_mdct [F, NB]). A CUDA
+    tensor runs K6 (the windowed FFT inputs), K1 and K8; a CPU tensor the
+    eager chain."""
+    if frames.is_cuda:
+        from .kernels import analysis_pre, fft_stages, psycho
+        btc = bt.to(torch.int32).contiguous()
+        pre = analysis_pre.analysis_pre(
+            frames.to(torch.float32).contiguous(), btc, None, "psycho")
+        spec = fft_stages.fft(*pre[:2]) + fft_stages.fft(*pre[2:])
+        return psycho.psycho(*spec, coeffs.to(torch.float32).contiguous(),
+                             btc, fs, full_psycho)
+    fr = frames.to(torch.float32)
+    hl = xpsy.dev_psy_tables(fs, True, str(fr.device))["hann"]
+    hs = xpsy.dev_psy_tables(fs, False, str(fr.device))["hann"]
+    return thresholds(xpsy.rfft_power(fr * hl),
+                      xpsy.rfft_power(short_subblocks(fr) * hs), coeffs, bt,
+                      fs, full_psycho)

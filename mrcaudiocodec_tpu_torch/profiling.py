@@ -3,9 +3,10 @@
     card_line()                    the card's name and power limit
     device_ms(fn, ...)             profiler device ms per call of fn()
     kernel_device_totals(prof, names)
-    capture_inputs(run, per_key)   K1-K4 inputs recorded at their wrappers
+    capture_inputs(run, per_key)   K1-K8 inputs recorded at their wrappers
     kernel_bound(key, args)        bytes, ops and op rate of one launch
     rd_loop_ops(args, kept)        K4's f32 ops, kept magnitudes or not
+    psycho_ops(bt, fs, full)       K8's f32 ops on these block types
     bound_ms(parts)                the least time for a set of launches
 
 Bounds are against the H100 SXM's published rates at its 700 W limit; a
@@ -27,7 +28,8 @@ F32_OPS_PER_S = 67e12 / 2
 # H100 SXM: 64 INT32 lanes per SM against 128 FP32 (Hopper white paper)
 INT32_OPS_PER_S = F32_OPS_PER_S / 2
 
-KERNEL_NAMES = ("fft_stages", "quant_cost", "record_pack", "rd_loop")
+KERNEL_NAMES = ("fft_stages", "quant_cost", "record_pack", "rd_loop",
+                "transients", "analysis_pre", "mdct_post", "psycho")
 # f32 ops a bin (K2's pricing): quantize (two xsqrt of 24 ops, the step
 # and |x| * step, a * sqrt(a), add, floor, min); dequantize by its chain
 # (max, xlog2's 26, the 4/3 multiply, xexp2's 20, the zero select, the
@@ -37,6 +39,16 @@ KERNEL_NAMES = ("fft_stages", "quant_cost", "record_pack", "rd_loop")
 QUANT_OPS = 54
 DEQUANT_OPS = 53
 DEQUANT_TABLE_OPS = 4
+# the analysis kernels' f32 ops (an op of the torch DAG each; a negation
+# and a compare count as one): xlog2 (the compare, the halving, t = m - 1,
+# 12 Horner steps of 2, the exponent's exact conversion and e + p) and
+# xexp2 (the rounding add and its exact conversion, f, f * ln2, 7 Horner
+# steps of 2, the scale); a sample of the transient detector (difference,
+# square, one tree add) and its 16 sub-blocks' ladder and compares
+XLOG2_OPS = 29
+XEXP2_OPS = 19
+TRANSIENT_OPS_PER_SAMPLE = 3
+TRANSIENT_OPS_PER_FRAME = 4 * 16 + 15 * 5
 
 
 def log(*a):
@@ -109,14 +121,16 @@ def kernel_device_totals(prof, names):
 
 
 def capture_inputs(run, per_key: int = 1):
-    """Run run() with K1's, K2's, K3's and K4's wrappers recording a copy
-    of their arguments -> {key: args} of the first `per_key` calls of each
-    key: K1 ("fft_stages", shape), K2 ("quant_cost", (rows, G)), K3
-    ("record_pack", (records in the stream order,)), K4 ("rd_loop",
-    (rows,)), in call order; the i-th call (i > 0) of a key is stored
-    under key + (i,)."""
+    """Run run() with K1-K8's wrappers recording a copy of their arguments
+    -> {key: args} of the first `per_key` calls of each key: K1
+    ("fft_stages", shape), K2 ("quant_cost", (rows, G)), K3 ("record_pack",
+    (records in the stream order,)), K4 ("rd_loop", (rows,)), K5
+    ("transients", (rows, frames)), K6-K8 ("analysis_pre" / "mdct_post" /
+    "psycho", (frame rows,)), in call order; the i-th call (i > 0) of a
+    key is stored under key + (i,)."""
     import torch
-    from .ops.kernels import fft_stages, quant_cost, rd_loop, record_pack
+    from .ops.kernels import (analysis_pre, fft_stages, mdct_post, psycho,
+                              quant_cost, rd_loop, record_pack, transients)
     seen, calls = {}, {}
     hooks = ((fft_stages, "fft_kernel",
               lambda a: ("fft_stages", tuple(a[0].shape))),
@@ -125,7 +139,16 @@ def capture_inputs(run, per_key: int = 1):
              (record_pack, "pack_stream_kernel",
               lambda a: ("record_pack", (a[5].shape[0],))),
              (rd_loop, "rd_loop_kernel",
-              lambda a: ("rd_loop", (a[0].shape[0],))))
+              lambda a: ("rd_loop", (a[0].shape[0],))),
+             (transients, "transients_kernel",
+              lambda a: ("transients", (a[0].shape[0],
+                                        a[0].shape[1] // 1024 - 3))),
+             (analysis_pre, "analysis_pre_kernel",
+              lambda a: ("analysis_pre", (a[1].numel(),))),
+             (mdct_post, "mdct_post_kernel",
+              lambda a: ("mdct_post", (a[4].shape[0],))),
+             (psycho, "psycho_kernel",
+              lambda a: ("psycho", (a[5].shape[0],))))
     saved = []
     for mod, attr, key_of in hooks:
         orig = getattr(mod, attr)
@@ -171,6 +194,8 @@ def kernel_bound(key, args):
         rows, nb = args[1].shape
         return (rows * (2 * C.LONG_COEFFS + 2 * nb + 6) * 4
                 + (C.QMAX + 1) * 4, rd_loop_ops(args), F32_OPS_PER_S)
+    if key[0] in ("transients", "analysis_pre", "mdct_post", "psycho"):
+        return analysis_bound(key[0], args)
     # K3: the packed records' q, amp, cb, gain, bt and their order entries
     # in; the compact body and nbytes out. Integer work these records need:
     # a shift and an OR per bit-carrying slot
@@ -181,6 +206,90 @@ def kernel_bound(key, args):
     body = int(((C.FRAME_LEN_BITS + content + 7) >> 3).sum())
     return (n * (2 * C.LONG_COEFFS + 2 * nb + 2 + 1 + 4) + body + n * 4,
             2 * int((lens > 0).sum()), INT32_OPS_PER_S)
+
+
+def analysis_bound(name, args):
+    """(bytes, ops, ops per s) of one launch of K5-K8 on these inputs:
+    each input read once (K5 and K6 read each sample once, though the
+    frames overlap; K7 and K8 the transform or spectrum the frame's block
+    type selects), each output written once; the f32 ops that work needs."""
+    from . import config as C
+    from . import tables as T
+    from . import xpsy
+    if name in ("transients", "analysis_pre"):
+        audio = args[0]
+        samples = audio.numel()
+        conv = 2 * samples if audio.dtype.itemsize == 2 else 0
+        read = samples * audio.dtype.itemsize
+    if name == "transients":
+        r, ext = audio.shape[0], audio.shape[1] // C.HOP - 1    # s + 2
+        ops = conv + (r * ext * (C.LONG_SIZE * TRANSIENT_OPS_PER_SAMPLE
+                                 + TRANSIENT_OPS_PER_FRAME)
+                      if args[1] else 0)
+        return read + r * (ext - 2) * 4, ops, F32_OPS_PER_S
+    if name == "analysis_pre":
+        bt, parts = args[1], args[3]
+        nf = bt.numel()
+        mdct = parts in ("all", "mdct")
+        psy = parts in ("all", "psycho")
+        # MDCT: window, fold (negate and subtract, or subtract), pre-twiddle
+        # (4 multiplies and 2 adds a pair) for the long and the 8 short
+        # transforms; psycho: the Hann window
+        per = mdct * 2 * (2048 + 1536 + 512 * 6) + psy * 2 * 2048
+        out = (mdct * 1024 + psy * 2048) * 8
+        tables = (mdct * (5 * 2048 + 256 + 2049 + 257)
+                  + psy * (2048 + 256)) * 4
+        return (read + nf * (4 + out) + tables, conv + nf * per,
+                F32_OPS_PER_S)
+    if name == "mdct_post":
+        nf = args[4].shape[0]
+        # post-twiddle (3 or 4 ops a coefficient) and the scale
+        return (nf * (4096 + 4 + 4096) + (2049 + 257) * 4,
+                nf * (512 * 3 + 512 * 4 + 1024), F32_OPS_PER_S)
+    bt, fs, full = args[5], args[6], args[7]
+    nf, nb = bt.shape[0], T.unified_layout(fs)["nb"]
+    blobs = sum(b.nbytes for lb in (True, False)
+                for b in xpsy.kernel_blobs(fs, lb))
+    return (nf * (8192 + 4096 + 4 + 8 * nb + 4) + blobs,
+            psycho_ops(bt, fs, full), F32_OPS_PER_S)
+
+
+def psycho_ops(bt, fs: int, full: bool) -> int:
+    """K8's f32 ops on these block types: each frame's own family only
+    (the kernel computes no other), counted by the torch DAG's ops."""
+    from . import config as C
+    from . import tables as T
+    from . import xpsy
+    nb_u = T.unified_layout(fs)["nb"]
+    n_short = int((bt == C.SHORT).sum())
+    total = 0
+    for long_block, frames in ((True, bt.shape[0] - n_short),
+                               (False, n_short)):
+        cst = xpsy.psy_tables(fs, long_block)
+        g = 1 if long_block else C.N_SHORT
+        bins, npart, nb = C.LONG_COEFFS, cst["npart"], cst["nb"]
+        p2 = 1 << (nb - 1).bit_length()
+        part_st = xpsy._stage_count(cst["part_edges"])
+        band_st = xpsy._stage_count(cst["band_edges"])
+        # untwist and power (19 a bin), the max and the floor
+        per = bins * 21 + g
+        # scans: p (and the xlog2 of p + TINY) over partitions, p and the
+        # coefficients squared over bands
+        per += bins * (part_st * (2 if full else 1) + 2 * band_st + 1)
+        if full:
+            per += bins * (XLOG2_OPS + 1)
+            # spreading, flatness, xexp2, offsets (about 12 ops)
+            per += g * npart * (2 * npart - 1 + XLOG2_OPS + XEXP2_OPS + 14)
+        else:
+            per += g * npart
+        per += g * npart * 2                          # ATH max, density
+        # a band: the min over the partitions, the width, the PE term
+        per += g * nb * (npart + 1 + 3 * XLOG2_OPS + XEXP2_OPS + 6)
+        per += g * (p2 - 1) + (g - 1)                  # tree, fold
+        # allowed noise of each unified band
+        per += nb_u * (2 * XLOG2_OPS + XEXP2_OPS + 6)
+        total += frames * per
+    return total
 
 
 def rd_loop_ops(args, kept: bool = True) -> int:

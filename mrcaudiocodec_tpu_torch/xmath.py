@@ -101,6 +101,23 @@ def _dev_dif_tables(n: int, device: str):
 
 
 @functools.lru_cache(maxsize=None)
+def dct4_blob(m_size: int) -> np.ndarray:
+    """The size-m DCT-IV's constants for the analysis kernels, in
+    `ffi_table`'s order (the JAX package's xmath) without its FFT stage
+    twiddles, which K1 holds: [pre_re, pre_im, post_re, post_im, scale],
+    f32 [4 * (m/2) + 1]."""
+    cst = _dct4_tables(m_size)
+    return np.concatenate([cst["pre_re"], cst["pre_im"], cst["post_re"],
+                           cst["post_im"], [cst["scale"]]]).astype(F32)
+
+
+@functools.lru_cache(maxsize=None)
+def dev_dct4_blob(m_size: int, device: str):
+    """dct4_blob(m_size) as a tensor on `device`."""
+    return torch.from_numpy(dct4_blob(m_size)).to(device)
+
+
+@functools.lru_cache(maxsize=None)
 def _dev_dct4(m_size: int, device: str):
     cst = _dct4_tables(m_size)
     out = {k: torch.from_numpy(cst[k]).to(device)
@@ -178,22 +195,34 @@ def unfold(u):
     ], dim=-1)
 
 
+def dct_iv_pre(u):
+    """The DCT-IV's ops before its FFT: the even / flipped-odd split and
+    the pre-twiddle. u [..., M] -> (z_re, z_im) [..., M/2]."""
+    cst = _dev_dct4(u.shape[-1], str(u.device))
+    ue = u[..., 0::2]
+    uo = torch.flip(u, [-1])[..., 0::2]                 # u[M-1-2m]
+    return _cmul(ue, uo, cst["pre_re"], cst["pre_im"])
+
+
+def dct_iv_post(a_re, a_im):
+    """The DCT-IV's ops after its FFT: the post-twiddle, the flip(-b_im)
+    interleave and the scale. (a_re, a_im) [..., M/2] -> [..., M]."""
+    h = a_re.shape[-1]
+    cst = _dev_dct4(2 * h, str(a_re.device))
+    b_re, b_im = _cmul(a_re, a_im, cst["post_re"], cst["post_im"])
+    neg_rev = torch.flip(-b_im, [-1])
+    out = torch.stack([b_re, neg_rev], dim=-1).reshape(
+        a_re.shape[:-1] + (2 * h,))
+    return out * cst["scale"]
+
+
 def dct_iv_fast(u):
     """Orthonormal DCT-IV along the last axis (size 2^k).
 
     The FFT stages are `fft_stages.fft`: the CUDA kernel K1 for a CUDA
     tensor, the plain `fft_dif` for a CPU tensor."""
     from .ops.kernels import fft_stages      # it imports this module
-    m_size = u.shape[-1]
-    cst = _dev_dct4(m_size, str(u.device))
-    ue = u[..., 0::2]
-    uo = torch.flip(u, [-1])[..., 0::2]                 # u[M-1-2m]
-    z_re, z_im = _cmul(ue, uo, cst["pre_re"], cst["pre_im"])
-    a_re, a_im = fft_stages.fft(z_re, z_im)
-    b_re, b_im = _cmul(a_re, a_im, cst["post_re"], cst["post_im"])
-    neg_rev = torch.flip(-b_im, [-1])
-    out = torch.stack([b_re, neg_rev], dim=-1).reshape(u.shape)
-    return out * cst["scale"]
+    return dct_iv_post(*fft_stages.fft(*dct_iv_pre(u)))
 
 
 def mdct_windowed_fast(fr, w):

@@ -233,19 +233,17 @@ def _dev_rfft(n: int, device: str):
     return torch.from_numpy(cr).to(device), torch.from_numpy(ci).to(device)
 
 
-def rfft_power(w):
-    """[..., n] real f32 -> [..., n/2] power spectrum bins 0..n/2-1.
+def rfft_pre(w):
+    """The real FFT's input as the half-size complex transform's:
+    z[m] = w[2m] + i*w[2m+1]. [..., n] -> (zr, zi) [..., n/2]."""
+    return w[..., 0::2].contiguous(), w[..., 1::2].contiguous()
 
-    z[m] = w[2m] + i*w[2m+1]; Z = FFT_{n/2}(z); bins via the untwist
+
+def rfft_untwist_power(ar, ai):
+    """Z = FFT_{n/2}(z) [..., n/2] -> the power spectrum bins 0..n/2-1:
     X[k] = A[k] + W_k * B[k] with A = (Z[k]+conj(Z[-k]))/2,
-    B = -i (Z[k]-conj(Z[-k]))/2 — every multiply/add a pinned single op.
-    The FFT is `fft_stages.fft`: K1 on the card, the plain `xmath.fft_dif`
-    for a CPU tensor."""
-    from .ops.kernels import fft_stages      # it imports xmath
-    h = w.shape[-1] // 2
-    zr = w[..., 0::2].contiguous()
-    zi = w[..., 1::2].contiguous()
-    ar, ai = fft_stages.fft(zr, zi)
+    B = -i (Z[k]-conj(Z[-k]))/2 — every multiply/add a pinned single op."""
+    h = ar.shape[-1]
     # Z[-k]: index (h - k) mod h = [0, h-1, h-2, ..., 1]
     br = torch.cat([ar[..., :1], torch.flip(ar[..., 1:], [-1])], dim=-1)
     bi = torch.cat([ai[..., :1], torch.flip(ai[..., 1:], [-1])], dim=-1)
@@ -253,10 +251,19 @@ def rfft_power(w):
     a_im = (ai - bi) * 0.5
     b_re = (ai + bi) * 0.5
     b_im = (br - ar) * 0.5
-    cr, ci = _dev_rfft(2 * h, str(w.device))
+    cr, ci = _dev_rfft(2 * h, str(ar.device))
     x_re = a_re + (b_re * cr - b_im * ci)
     x_im = a_im + (b_re * ci + b_im * cr)
     return x_re * x_re + x_im * x_im
+
+
+def rfft_power(w):
+    """[..., n] real f32 -> [..., n/2] power spectrum bins 0..n/2-1:
+    `rfft_pre`, the FFT, `rfft_untwist_power`. The FFT is
+    `fft_stages.fft`: K1 on the card, the plain `xmath.fft_dif` for a CPU
+    tensor."""
+    from .ops.kernels import fft_stages      # it imports xmath
+    return rfft_untwist_power(*fft_stages.fft(*rfft_pre(w)))
 
 
 # ---------------------------------------------------------------------------
@@ -323,6 +330,56 @@ _TEN_LOG10_2 = f32(10.0 * 0.3010299956639812)   # sfm_db per log2 unit
 _INV_NEG60 = f32(-1.0 / 60.0)
 _NEG_L210_10 = f32(-3.321928094887362 / 10.0)   # exp2 arg per offset dB
 BIG = f32(1e30)
+
+
+def _stage_count(edges: tuple) -> int:
+    """The stages of `seg_scan` over these edges (shifts 1, 2, 4, ...
+    below the widest segment)."""
+    return len(_seg_tables_from_edges(edges)[0])
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_blobs(fs: int, long_block: bool):
+    """(f32 blob, i32 blob) of one block family for the analysis kernels
+    (csrc/analysis_pre.cu reads hann, csrc/psycho.cu the rest).
+
+    The layout of the JAX package's `xpsy.ffi_blobs` (its native kernel's,
+    native/xpsy_ffi.cpp) without the FFT stage twiddles, which K1 holds;
+    derived here from this module's own `psy_tables`:
+      i32: n, h, npart, nb, part stages, band stages, groups (1 or 8),
+           SHORT_OFFSET, then part_seg_start [h], part_ends [npart],
+           band_seg_start [h], band_ends [nb], pb_mask [npart * nb]
+      f32: hann [n], untwist cr [h], ci [h], spread [npart * npart],
+           inv_counts [npart], ath [npart], width [nb]
+    """
+    cst = psy_tables(fs, long_block)
+    h = C.LONG_COEFFS if long_block else C.SHORT_COEFFS
+    cr, ci = _rfft_tables(2 * h)
+    npart, nb = cst["npart"], cst["nb"]
+
+    def seg_start_of(edges):
+        e = np.asarray(edges, np.int64)
+        out = np.zeros(h, np.int32)
+        for s in range(len(e) - 1):
+            out[e[s]:e[s + 1]] = e[s]
+        return out
+
+    pe_ = np.asarray(cst["part_edges"], np.int64)
+    be_ = np.asarray(cst["band_edges"], np.int64)
+    i32 = np.concatenate([
+        np.asarray([2 * h, h, npart, nb, _stage_count(cst["part_edges"]),
+                    _stage_count(cst["band_edges"]),
+                    1 if long_block else C.N_SHORT, C.SHORT_OFFSET],
+                   np.int32),
+        seg_start_of(pe_), (pe_[1:] - 1).astype(np.int32),
+        seg_start_of(be_), (be_[1:] - 1).astype(np.int32),
+        cst["pb_mask"].astype(np.int32).reshape(-1),
+    ]).astype(np.int32)
+    f32_ = np.concatenate([
+        cst["hann"], cr, ci, cst["spread_rows"].reshape(-1),
+        cst["inv_counts"], cst["ath_part"], cst["width"],
+    ]).astype(F32)
+    return f32_, i32
 
 
 def spread_apply(e_part, rows):
@@ -425,3 +482,19 @@ def allowed_noise(e_mdct, e_full, t_full):
     inv_log = xlog2(t_full + TINY) - xlog2(e_full + TINY)
     inv_log = torch.clamp(inv_log, _LOG2_INV_SMR_CEIL, _LOG2_INV_SMR_FLOOR)
     return e_mdct * xexp2(inv_log)
+
+
+@functools.lru_cache(maxsize=1)
+def kernel_consts() -> np.ndarray:
+    """The f32 constants of the analysis kernels' chains, in the order of
+    `struct Consts` in csrc/xpsy_dev.cuh (this module's f32 roundings):
+    TINY, LN2, SQRT2, the xlog2 coefficients [13], the xexp2 coefficients
+    [8], SFM_FLOOR_REL, TMN_DB, NMT_DB, the simple-model factor,
+    10 log10(2), -1/60, -log2(10)/10, BIG, log2(1/SMR_CEIL),
+    log2(1/SMR_FLOOR), ATTACK_RATIO, ATTACK_ABS, EPS * i [15], 1 / i [15]."""
+    return np.concatenate([
+        [TINY, LN2, SQRT2], _LOG2_P, _EXP_K,
+        [SFM_FLOOR_REL, TMN_DB, NMT_DB, _SIMPLE_FACTOR, _TEN_LOG10_2,
+         _INV_NEG60, _NEG_L210_10, BIG, _LOG2_INV_SMR_CEIL,
+         _LOG2_INV_SMR_FLOOR, ATTACK_RATIO, ATTACK_ABS],
+        _EPS_I, _INV_I]).astype(F32)

@@ -16,6 +16,13 @@ version `rd.rd_loop_plain` is held against the JAX and spec RD loops in
 tests/test_torch_rd_loop.py, and here (on a card) the kernel against it at
 1, 31, 4096 and 8192 frames, all three rates, the RD corners and 20
 repeats, and its |q|^(4/3) table built on the card against the CPU's.
+K5-K8, the analysis stage's kernels (transients, analysis_pre, mdct_post,
+psycho), have no Pallas counterpart either; their plain versions are held
+to the eager chain and the JAX package's jit A in
+tests/test_torch_analysis.py, and here (on a card) each kernel to its
+plain version at all three rates, int16 and float32 rows, both windows,
+window switching and full psycho on and off, silent and transient-dense
+chunks.
 Tests marked `cuda` need a card and skip here; the machine with the card
 has no JAX, so this module imports JAX only inside the tests that compare
 against it, and there the tests run as `MRC_TESTS_KEEP_TPU=1 python -m
@@ -32,8 +39,10 @@ from mrcaudiocodec_tpu import xmath as jxmath
 
 from mrcaudiocodec_tpu_torch.ops import entropy, rd
 from mrcaudiocodec_tpu_torch.ops import device_pack
-from mrcaudiocodec_tpu_torch.ops.kernels import (fft_stages, quant_cost,
-                                                 rd_loop, record_pack)
+from mrcaudiocodec_tpu_torch.ops.kernels import (analysis_pre, fft_stages,
+                                                 mdct_post, psycho,
+                                                 quant_cost, rd_loop,
+                                                 record_pack, transients)
 
 torch.set_num_threads(1)
 
@@ -629,11 +638,51 @@ def test_rd_loop_kernel_rejects_cpu_and_bad_inputs():
     rd_loop.check_inputs("k", *args, JT.unified_layout(44100)["nb"], False)
 
 
+def _analysis_rows(fs, case, frames, seed):
+    """Hop rows [2, (frames + 3) * 1024] of a chunk: "music" (tones,
+    noise, a burst every ~0.12 s), "transient" (bursts every 1500
+    samples, SHORT frames), "silent"; int16 unless "f32" is in case."""
+    rng = np.random.default_rng(seed)
+    n = (frames + 3) * 1024
+    t = np.arange(n) / fs
+    x = np.zeros((2, n), np.float32)
+    if "silent" not in case:
+        x[:] = 0.3 * np.sin(2 * np.pi * 440 * t) + 0.02 * \
+            rng.standard_normal((2, n))
+        step = 1500 if "transient" in case else fs // 8
+        for pos in range(700, n - 100, step):
+            x[:, pos:pos + 40] += 0.7 * rng.standard_normal((2, 40))
+    x = np.clip(x, -1, 1).astype(np.float32)
+    if "f32" in case:
+        return x
+    return np.clip(np.round(x * 32768), -32768, 32767).astype(np.int16)
+
+
 def _wrapper_inputs(name, device):
-    """(dispatcher, kernel wrapper, plain version, args) of K1, K2 or K3 on
-    small random inputs on `device`."""
+    """(dispatcher, kernel wrapper, plain version, args) of K1-K8 on small
+    random inputs on `device`."""
     rng = np.random.default_rng(7)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    if name in ("transients", "analysis_pre", "mdct_post", "psycho"):
+        a = t(_analysis_rows(44100, "transient", 5, 7))
+        bt = transients.transients_plain(a, True)
+        if name == "transients":
+            return (transients.block_types, transients.transients_kernel,
+                    transients.transients_plain, (a, True))
+        if name == "analysis_pre":
+            return (analysis_pre.analysis_pre,
+                    analysis_pre.analysis_pre_kernel,
+                    analysis_pre.analysis_pre_plain, (a, bt, "sine", "all"))
+        pre = analysis_pre.analysis_pre_plain(a, bt, "sine")
+        spec = [fft_stages.fft_plain(pre[i], pre[i + 1])
+                for i in range(0, 8, 2)]
+        btf = bt.reshape(-1)
+        if name == "mdct_post":
+            return (mdct_post.mdct_post, mdct_post.mdct_post_kernel,
+                    mdct_post.mdct_post_plain, (*spec[0], *spec[1], btf))
+        co = mdct_post.mdct_post_plain(*spec[0], *spec[1], btf)
+        return (psycho.psycho, psycho.psycho_kernel, psycho.psycho_plain,
+                (*spec[2], *spec[3], co, btf, 44100, True))
     if name == "fft_stages":
         z = rng.standard_normal((2, 512)).astype(np.float32)
         return (fft_stages.fft, fft_stages.fft_kernel, fft_stages.fft_plain,
@@ -656,13 +705,16 @@ def _wrapper_inputs(name, device):
 
 
 @pytest.mark.parametrize("name", ["fft_stages", "quant_cost",
-                                  "record_pack", "rd_loop"])
+                                  "record_pack", "rd_loop", "transients",
+                                  "analysis_pre", "mdct_post", "psycho"])
 def test_wrappers_launch_only_for_cuda_tensors(name, monkeypatch):
     """For CPU tensors the dispatcher takes the plain version and the
     kernel wrapper raises before its launch path (making the tensors'
     card current, the C entry, the launch count)."""
     mod = {"fft_stages": fft_stages, "quant_cost": quant_cost,
-           "record_pack": record_pack, "rd_loop": rd_loop}[name]
+           "record_pack": record_pack, "rd_loop": rd_loop,
+           "transients": transients, "analysis_pre": analysis_pre,
+           "mdct_post": mdct_post, "psycho": psycho}[name]
 
     def reached(*a, **k):
         raise AssertionError("the launch path was reached")
@@ -681,7 +733,8 @@ def test_wrappers_launch_only_for_cuda_tensors(name, monkeypatch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["fft_stages", "quant_cost",
-                                  "record_pack", "rd_loop"])
+                                  "record_pack", "rd_loop", "transients",
+                                  "analysis_pre", "mdct_post", "psycho"])
 def test_wrappers_launch_on_the_tensors_card(name):
     """Tensors on cuda:0 while cuda:1 is current: the kernel runs on the
     tensors' card and equals its plain version (needs two cards)."""
@@ -701,3 +754,55 @@ def test_wrappers_launch_on_the_tensors_card(name):
     for g, w in zip(got, want):
         assert g.device.index in (None, 0)
         assert torch.equal(g.cpu(), w.cpu())
+
+
+ANALYSIS_CASES = [
+    ("music", "sine", True, True), ("music f32", "sine", True, True),
+    ("transient", "sine", True, True), ("transient f32", "kbd", True, True),
+    ("music", "kbd", False, True), ("transient", "sine", True, False),
+    ("silent", "sine", True, True), ("silent f32", "kbd", False, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ANALYSIS_CASES,
+                         ids=["-".join(map(str, c)) for c in ANALYSIS_CASES])
+@pytest.mark.parametrize("fs", [44100, 48000, 32000])
+def test_analysis_kernels_match_plain_on_card(fs, case):
+    """K5-K8 against their plain versions on the card, bitwise: each on
+    the plain outputs before it (K7 and K8 on K1's outputs), then the whole
+    kernel path of encoder._analyze_chunk against the eager chain on the
+    CPU, and repeated launches giving the same bits."""
+    _need_card()
+    from mrcaudiocodec_tpu_torch.config import CodecConfig
+    from mrcaudiocodec_tpu_torch.models import encoder
+    kind, window, ws, full = case
+    cfg = CodecConfig(fs=fs, channels=2, bitrate=128000, window=window,
+                      window_switching=ws, full_psycho=full)
+    a = torch.from_numpy(_analysis_rows(fs, kind, 300, fs)).cuda()
+
+    def same(got, want):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            g, w = g.cpu(), w.cpu()
+            if g.dtype == torch.float32:
+                g, w = g.view(torch.int32), w.view(torch.int32)
+            assert torch.equal(g, w)
+
+    bt = transients.transients_plain(a, ws)
+    same(transients.transients_kernel(a, ws), bt)
+    pre = analysis_pre.analysis_pre_plain(a, bt, window)
+    same(analysis_pre.analysis_pre_kernel(a, bt, window), pre)
+    spec = [fft_stages.fft_kernel(pre[i], pre[i + 1]) for i in range(0, 8, 2)]
+    btf = bt.reshape(-1)
+    co = mdct_post.mdct_post_plain(*spec[0], *spec[1], btf)
+    same(mdct_post.mdct_post_kernel(*spec[0], *spec[1], btf), co)
+    args = (*spec[2], *spec[3], co, btf, fs, full)
+    want = psycho.psycho_plain(*args)
+    for _ in range(3):
+        same(psycho.psycho_kernel(*args), want)
+    same(encoder._analyze_chunk(a, cfg), encoder._analyze_chunk(a.cpu(), cfg))
+    if "transient" in kind and ws:
+        assert (bt == 2).any()

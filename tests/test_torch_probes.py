@@ -217,6 +217,8 @@ def test_sass_counts_parses_listing():
         fn: {"FFMA": f, "FTZ": z, "instructions": 9, "ftz_ops": {}}}}
     audit = {"fft_stages": lib(0, 0), "quant_cost": lib(0, 0),
              "record_pack": lib(0, 0), "rd_loop": lib(0, 0),
+             "transients": lib(0, 0), "analysis_pre": lib(0, 0),
+             "mdct_post": lib(0, 0), "psycho": lib(0, 0),
              "probe_fma_contract": lib(3, 0),
              "probe_quant_g32": lib(24, 20, "_Zop_probe_kernel")}
     assert fma_probe.audit_failures(audit) == []
@@ -227,6 +229,10 @@ def test_sass_counts_parses_listing():
     assert fma_probe.audit_failures({**audit, "rd_loop": lib(0, 1)})
     assert fma_probe.audit_failures(
         {k: v for k, v in audit.items() if k != "rd_loop"})
+    assert fma_probe.audit_failures({**audit, "psycho": lib(0, 1)})
+    assert fma_probe.audit_failures({**audit, "transients": lib(1, 0)})
+    assert fma_probe.audit_failures(
+        {k: v for k, v in audit.items() if k != "analysis_pre"})
     assert fma_probe.audit_failures({**audit, "probe_fma_contract": lib(0, 0)})
     assert fma_probe.audit_failures(
         {**audit, "probe_primitives": lib(0, 1, "_Zp0_kernel")})
