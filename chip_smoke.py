@@ -7,7 +7,8 @@ Phases, in order; any failure raises, so the exit code is non-zero:
   1. card: name and power limit (nvidia-smi), CUDA version, capability 9.0
   2. build: the main path's eight CUDA kernels from csrc/ (nvcc, one
      process per source started together, -Xptxas -v per kernel); K4's
-     blocks resident an SM (the occupancy calculator), at least 7
+     blocks resident an SM (the occupancy calculator), at least 7, and
+     K8's frames in flight an SM, at least 20 (2 blocks of 10 warps)
   3. kernels against their plain PyTorch versions, bitwise:
      K1 fft_stages at all four FFT sizes (card kernel vs plain on the card
      and on the CPU); K2 quant_cost at G in {32, 8, 4, 1}, zero and random
@@ -41,8 +42,12 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      on the budget-0 pad rows alone, the
      30 s chunk at its own and at a millionth of its allowed noise, the
      time of one outer iteration from them, and the OUTER_MAX set cut to
-     132 ... 2586 rows (latency or issue); the SASS instruction mix of
-     K1-K8
+     132 ... 2586 rows (latency or issue); where K8's time goes
+     (k8_locate: the 30 s chunk's inputs cut to 132 ... 2586 rows, full
+     psycho off, a SHORT-dense chunk against as many mostly-long rows, the
+     batch's 8192) and K5's (k5_locate: the 30 s chunk's 2 rows, its row 0
+     alone, the batch chunk), each beside its bound; the SASS instruction
+     mix of K1-K8
   5. goldens g1-g6 encoded on the card (records built by K3) against their
      SHA-256 digests; each decoded on the card and on the CPU, PCM bitwise
      equal
@@ -370,14 +375,25 @@ def phase_build():
         "dynamic shared memory per warp of 128 B plus two staging buffers "
         "of cap rounded up to 4 B, warps per block from the cap "
         "(record_pack.warps_per_block); rd_loop: static shared memory "
-        "for one frame a block (ptxas above); transients, analysis_pre, "
-        "psycho: static shared memory (ptxas above), one block a tile of "
-        "30 frames (K5) or a frame (K6, K8); mdct_post: none")
-    from mrcaudiocodec_tpu_torch.ops.kernels import rd_loop
+        "for one frame a block (ptxas above); transients: static shared "
+        "memory (ptxas above), a block of T + 2 warps a tile of T block "
+        "types, T from the rows and frames (transients.tile_outputs: 10 "
+        "at 2 x 1293, 13 at 128 x 64 on 132 SMs); analysis_pre: static "
+        "shared memory, a block a frame; psycho: dynamic shared memory, two "
+        "rows of 1056 words and one of 512 a warp, a warp a frame (below); "
+        "mdct_post: none")
+    from mrcaudiocodec_tpu_torch.ops.kernels import psycho, rd_loop
     resident = rd_loop.blocks_per_sm()
     log(f"[build] rd_loop: {resident} blocks (of 128 threads) resident an "
         f"SM by the occupancy calculator; the design asks for 7")
     check(resident >= 7, f"rd_loop holds {resident} blocks an SM, not 7")
+    warps, smem, blocks = psycho.occupancy()
+    log(f"[build] psycho: {smem} B of dynamic shared memory a block of "
+        f"{warps} warps, {blocks} blocks ({warps * blocks} frames in "
+        f"flight) an SM by the occupancy calculator; the design asks for 2 "
+        f"(20 frames)")
+    check(warps * blocks >= 20, f"psycho holds {warps * blocks} frames an "
+          f"SM, not 20")
 
 
 def phase_kernels(dev):
@@ -1285,6 +1301,92 @@ def k4_locate(sets):
     return out
 
 
+def locate_measure(tag, name, where, args):
+    """One analysis kernel's device ms on these inputs beside its bound
+    (phase 4's k8_locate and k5_locate) -> the logged numbers."""
+    from mrcaudiocodec_tpu_torch.profiling import (bound_ms, device_ms,
+                                                   kernel_bound)
+    kernel = kernel_pair(name)[0]
+    ms = device_ms(lambda: kernel(*args), match=f"{name}_kernel")
+    b, o, rate = kernel_bound((name,), args)
+    t, by = bound_ms([(b, o, rate)])
+    x = "not measured" if ms is None else f"{ms / t:.2f}"
+    log(f"[{tag} time] {where}: device {ms} ms, bound {t:.5f} ms ({by}), "
+        f"x bound {x}")
+    return {"device_ms": ms, "bound_ms": t, "bound_by": by}
+
+
+def k8_locate(inputs):
+    """Where K8's time goes (phase 4): the 30 s chunk's captured inputs
+    cut to 132 ... 2586 rows (a time flat below about 528 rows, where
+    every frame has its own warp or block in flight, is latency); full
+    psycho off against on (the spreading, flatness and the second scan's
+    share); a chunk dense with SHORT frames against as many all-long rows
+    of the 30 s chunk; the batch's 8192 rows. -> the logged numbers."""
+    import torch
+    from mrcaudiocodec_tpu_torch import config as C
+    from mrcaudiocodec_tpu_torch.models import encoder
+    from mrcaudiocodec_tpu_torch.profiling import capture_inputs
+
+    def cut(args, n):
+        return tuple(a[:n].contiguous() if isinstance(a, torch.Tensor)
+                     else a for a in args)
+
+    enc = next(v for k, v in inputs["encode"].items() if k[0] == "psycho")
+    out = {"rows": {}}
+    for n in (132, 264, 528, 1056, enc[5].shape[0]):
+        out["rows"][n] = locate_measure("k8", "psycho", f"30 s chunk, first "
+                                        f"{n} rows", cut(enc, n))
+    base = out["rows"][132]["device_ms"]
+    if base is not None:
+        log("[k8 time] 30 s chunk, device ms over 132 rows' as the rows "
+            "grow: " + json.dumps({n: None if r["device_ms"] is None else
+                                   round(r["device_ms"] / base, 3)
+                                   for n, r in out["rows"].items()}))
+    out["full psycho off"] = locate_measure(
+        "k8", "psycho", "30 s chunk, full psycho off",
+        enc[:7] + (False,))
+    name, cfg, rows, _ = next(c for c in analysis_cases()
+                              if c[0] == "transient-dense")
+    audio = torch.from_numpy(np.ascontiguousarray(rows)).to("cuda")
+    caps = capture_inputs(lambda: encoder._analyze_chunk(audio, cfg))
+    dense = next(v for k, v in caps.items() if k[0] == "psycho")
+    n = dense[5].shape[0]
+    n_short = int((dense[5] == C.SHORT).sum())
+    out["SHORT-dense"] = locate_measure(
+        "k8", "psycho", f"{name} chunk, {n} rows, {n_short} SHORT", dense)
+    out["all-long"] = locate_measure(
+        "k8", "psycho", f"30 s chunk, first {n} rows, "
+        f"{int((enc[5][:n] == C.SHORT).sum())} SHORT", cut(enc, n))
+    out["SHORT rows"] = n_short
+    bat = next(v for k, v in inputs["corpus"].items() if k[0] == "psycho")
+    out["batch"] = locate_measure("k8", "psycho", f"batch chunk, "
+                                  f"{bat[5].shape[0]} rows", bat)
+    return out
+
+
+def k5_locate(inputs):
+    """Where K5's time goes (phase 4): the 30 s chunk as it comes (2
+    rows), its first row alone, and the batch's chunk (128 rows x 64
+    frames), each with the tile the wrapper picks. -> the logged
+    numbers."""
+    from mrcaudiocodec_tpu_torch.ops.kernels import transients
+    enc = next(v for k, v in inputs["encode"].items()
+               if k[0] == "transients")
+    bat = next(v for k, v in inputs["corpus"].items()
+               if k[0] == "transients")
+    out = {}
+    for where, args in (("30 s chunk", enc), ("30 s chunk, row 0 alone",
+                                               (enc[0][:1],) + enc[1:]),
+                        ("batch chunk", bat)):
+        r, s = args[0].shape[0], args[0].shape[1] // 1024 - 3
+        tile = transients.tile_outputs(r, s, transients._sms(0))
+        out[where] = locate_measure("k5", "transients",
+                                    f"{where}: {r} rows x {s} frames, "
+                                    f"tiles of {tile}", args)
+    return out
+
+
 def phase_times(dev, inputs, rd_sets):
     """Kernel, plain and library times on the main path's own inputs
     (main_path_inputs), beside the card's bound for the same work. The
@@ -1334,6 +1436,8 @@ def phase_times(dev, inputs, rd_sets):
         line["by_shape"] = by_shape
         out[name] = line
     out["rd_loop"]["locate"] = k4_locate(rd_sets)
+    out["psycho"]["locate"] = k8_locate(inputs)
+    out["transients"]["locate"] = k5_locate(inputs)
     log_instruction_mix()
     return out
 

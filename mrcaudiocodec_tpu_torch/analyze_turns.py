@@ -12,7 +12,7 @@ int16 clip's chunk (2586 frame rows) and on the first chunk of the 64 x
 streams. Then, in turns (base, this, this, base, ROUNDS times):
   * each chunk's `_analyze_chunk`: host-clock ms a call (CALLS calls
     closed by a synchronize), device ms a call (the profiler's kernel
-    times), device events a call;
+    times), device events a call, and K5's and K8's device ms in it;
   * the 30 s encode (`codec.encode`): wall ms (best of CALLS), and one
     profiled encode's device ms and device events;
   * the 64 x 10 s batch (`corpus.encode_batch`): wall ms, and one profiled
@@ -46,7 +46,8 @@ def _sync():
 
 def profiled(fn, names):
     """One call of fn() under torch.profiler -> (device ms, device events,
-    device ms of the kernels whose names hold one of `names` + _kernel)."""
+    device ms of the kernels whose names hold one of `names` + _kernel,
+    {name: device ms} of each of those)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -59,16 +60,18 @@ def profiled(fn, names):
         _sync()
         fn()
         _sync()
-    ms, events, kern = 0.0, 0, 0.0
+    ms, events, kern, each = 0.0, 0, 0.0, {}
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", 0) / 1e3
         if t <= 0 or "FillFunctor" in e.key:
             continue
         ms += t
         events += e.count
-        if any(f"{n}_kernel" in e.key for n in names):
-            kern += t
-    return ms, events, kern
+        for n in names:
+            if f"{n}_kernel" in e.key:
+                kern += t
+                each[n] = each.get(n, 0.0) + t
+    return ms, events, kern, each
 
 
 def wall_ms(fn, calls: int, best: bool):
@@ -167,17 +170,20 @@ def main(argv=None) -> int:
            "runs": {}}
     for name in fns["this"]:
         rec = {k: {"wall_ms": [], "device_ms": [], "events": [],
-                   "kernel_ms": []} for k in pkgs}
+                   "kernel_ms": [], "transients_ms": [], "psycho_ms": []}
+               for k in pkgs}
         for _ in range(ROUNDS):
             for k in ("base", "this", "this", "base"):
                 fn = fns[k][name]
                 calls = CALLS if not name.startswith("batch") else 3
                 rec[k]["wall_ms"].append(wall_ms(
                     fn, calls, best=not name.startswith("analyze")))
-                ms, ev, kern = profiled(fn, own[k])
+                ms, ev, kern, each = profiled(fn, own[k])
                 rec[k]["device_ms"].append(ms)
                 rec[k]["events"].append(ev)
                 rec[k]["kernel_ms"].append(kern)
+                for n in ("transients", "psycho"):
+                    rec[k][f"{n}_ms"].append(each.get(n))
         for k in pkgs:
             r = rec[k]
             r["best_wall_ms"] = min(r["wall_ms"])
@@ -187,6 +193,10 @@ def main(argv=None) -> int:
             r["outside_kernels_ms"] = float(np.median(
                 [d - q for d, q in zip(r["device_ms"], r["kernel_ms"])]))
             r["kernels"] = own[k]
+            for n in ("transients", "psycho"):
+                got = [v for v in r[f"{n}_ms"] if v is not None]
+                r[f"median_{n}_ms"] = (float(np.median(got)) if got
+                                       else None)
         res["runs"][name] = rec
         log(f"[analyze turns] {smi}; {name}: " + "; ".join(
             f"{k}: wall ms {[round(w, 3) for w in rec[k]['wall_ms']]} "
@@ -194,7 +204,9 @@ def main(argv=None) -> int:
             f"{rec[k]['median_device_ms']:.3f}, busy "
             f"{rec[k]['busy_share']:.3f}, events {rec[k]['events']}, "
             f"outside the {len(own[k])} kernels "
-            f"{rec[k]['outside_kernels_ms']:.3f} ms" for k in pkgs))
+            f"{rec[k]['outside_kernels_ms']:.3f} ms, K5 "
+            f"{rec[k]['median_transients_ms']} ms, K8 "
+            f"{rec[k]['median_psycho_ms']} ms" for k in pkgs))
     print(json.dumps(res))
     return 0
 

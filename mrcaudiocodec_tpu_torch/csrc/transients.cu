@@ -36,12 +36,18 @@
 //
 // Bound on this card: HBM bytes, the rows read once (2 B or 4 B a
 // sample) and bt written; about 3 f32 ops a sample, far below the byte
-// time. Design: one warp an extended frame, 4 frames a warp, 8 warps a
-// block: a block computes the flags of 32 extended frames into shared
-// memory and writes the block types of the 30 frames they surround
-// (neighbour flags recomputed at tile edges: 2 of 32). A lane reads 4
-// consecutive samples of each of the 16 sub-blocks (coalesced) and the
-// sample before them (the first difference).
+// time. Design: one warp an extended frame; a block of T + 2 warps
+// computes the flags of T + 2 consecutive extended frames into shared
+// memory and writes the block types of the T frames they surround
+// (neighbour flags recomputed at tile edges: 2 a tile, reread from L2).
+// T comes from the wrapper (transients.tile_outputs): a tile of at most
+// 14 block types, and at least two blocks an SM over the chunk, so the
+// 30 s chunk's 2 rows spread over the whole card and the batch's 64
+// frames a row split into tiles of 13 and 12 (no warp of a full tile
+// idle). A lane reads 4 consecutive samples of each of the 16 sub-blocks
+// (coalesced; one 8 or 16 B load each where the rows are aligned), all 64
+// before any reduction; the sample before a lane's 4 comes from the lane
+// below (from lane 31 of the sub-block before, for lane 0).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -51,42 +57,83 @@
 namespace {
 
 constexpr int kHop = 1024;
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kPerWarp = 4;
-constexpr int kTileExt = kWarps * kPerWarp;  // extended frames a block
-constexpr int kTileOut = kTileExt - 2;        // block types a block
+constexpr int kMaxWarps = 16;                 // T <= 14
+constexpr unsigned kAll = 0xffffffffu;
 // config.py's block types
 constexpr int kLong = 0, kStart = 1, kShort = 2, kStop = 3, kStartStop = 4;
 
-__device__ __forceinline__ float sample(const int16_t* p, long long i) {
-    return __fmul_rn(xpsy::exact_float(p[i]), 3.0517578125e-05f);  // 2^-15
-}
-__device__ __forceinline__ float sample(const float* p, long long i) {
-    return p[i];
+__device__ __forceinline__ float sample(int16_t v) {
+    return __fmul_rn(xpsy::exact_float(v), 3.0517578125e-05f);   // 2^-15
 }
 
-// The attack flag of the 2048 samples at `x` (one warp, every lane gets it)
+// lane's 4 samples of each sub-block g: x[g][c] = sample g * 128 + 4 lane + c
+__device__ __forceinline__ void load4(const int16_t* p, bool vec,
+                                      float (&x)[16][4]) {
+    if (vec) {
+#pragma unroll
+        for (int g = 0; g < 16; ++g) {
+            const int2 v = __ldg(reinterpret_cast<const int2*>(p + g * 128) +
+                                 (threadIdx.x & 31));
+            x[g][0] = sample((int16_t)(v.x & 0xffff));
+            x[g][1] = sample((int16_t)(v.x >> 16));
+            x[g][2] = sample((int16_t)(v.y & 0xffff));
+            x[g][3] = sample((int16_t)(v.y >> 16));
+        }
+    } else {
+#pragma unroll
+        for (int g = 0; g < 16; ++g)
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+                x[g][c] = sample(p[g * 128 + 4 * (threadIdx.x & 31) + c]);
+    }
+}
+__device__ __forceinline__ void load4(const float* p, bool vec,
+                                      float (&x)[16][4]) {
+    if (vec) {
+#pragma unroll
+        for (int g = 0; g < 16; ++g) {
+            const float4 v = __ldg(
+                reinterpret_cast<const float4*>(p + g * 128) + (threadIdx.x & 31));
+            x[g][0] = v.x;
+            x[g][1] = v.y;
+            x[g][2] = v.z;
+            x[g][3] = v.w;
+        }
+    } else {
+#pragma unroll
+        for (int g = 0; g < 16; ++g)
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+                x[g][c] = __ldg(p + g * 128 + 4 * (threadIdx.x & 31) + c);
+    }
+}
+
+// The attack flag of the 2048 samples at `p` (one warp, every lane gets it)
 template <typename T>
-__device__ __forceinline__ bool attack(const T* x, int lane,
+__device__ __forceinline__ bool attack(const T* p, bool vec, int lane,
                                       const xpsy::Consts& c) {
+    float x[16][4];
+    load4(p, vec, x);
     float e[16];
 #pragma unroll
     for (int g = 0; g < 16; ++g) {
-        const int k0 = g * 128 + 4 * lane;
-        const float x0 = sample(x, k0), x1 = sample(x, k0 + 1);
-        const float x2 = sample(x, k0 + 2), x3 = sample(x, k0 + 3);
-        const float d0 = k0 == 0 ? 0.0f : __fsub_rn(x0, sample(x, k0 - 1));
-        const float d1 = __fsub_rn(x1, x0);
-        const float d2 = __fsub_rn(x2, x1);
-        const float d3 = __fsub_rn(x3, x2);
-        float s = __fadd_rn(__fadd_rn(__fmul_rn(d1, d1), __fmul_rn(d0, d0)),
-                            __fadd_rn(__fmul_rn(d3, d3), __fmul_rn(d2, d2)));
-#pragma unroll
-        for (int o = 1; o < 32; o <<= 1)
-            s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, o));
-        e[g] = s;
+        // the sample before this lane's 4: lane - 1's last, for lane 0 lane
+        // 31's last of the sub-block before (none before the frame's first)
+        const float below = __shfl_up_sync(kAll, x[g][3], 1);
+        const float wrap = __shfl_sync(kAll, x[g > 0 ? g - 1 : 0][3], 31);
+        const float xm = lane > 0 ? below : wrap;
+        const float d0 = (g == 0 && lane == 0) ? 0.0f : __fsub_rn(x[g][0], xm);
+        const float d1 = __fsub_rn(x[g][1], x[g][0]);
+        const float d2 = __fsub_rn(x[g][2], x[g][1]);
+        const float d3 = __fsub_rn(x[g][3], x[g][2]);
+        e[g] = __fadd_rn(__fadd_rn(__fmul_rn(d1, d1), __fmul_rn(d0, d0)),
+                         __fadd_rn(__fmul_rn(d3, d3), __fmul_rn(d2, d2)));
     }
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1)
+#pragma unroll
+        for (int g = 0; g < 16; ++g)
+            e[g] = __fadd_rn(e[g], __shfl_xor_sync(kAll, e[g], o));
     float cs[16];
 #pragma unroll
     for (int j = 0; j < 16; ++j) cs[j] = e[j];
@@ -109,30 +156,30 @@ __device__ __forceinline__ bool attack(const T* x, int lane,
     return any;
 }
 
+// block (x, r): row r's extended frames x T .. x T + T + 1, a warp each,
+// and the block types of its frames x T .. x T + T - 1
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxWarps * 32)
 transients_kernel(const T* __restrict__ audio, long long row_stride, int s,
-                  int window_switching, xpsy::Consts c, int* __restrict__ bt) {
-    __shared__ int s_flag[kTileExt];
+                  int tile, int vec, int window_switching, xpsy::Consts c,
+                  int* __restrict__ bt) {
+    __shared__ int s_flag[kMaxWarps];
     const int r = blockIdx.y;
-    const int f0 = blockIdx.x * kTileOut;
+    const int f0 = blockIdx.x * tile;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const T* row = audio + (long long)r * row_stride;
     if (window_switching) {
-#pragma unroll 1
-        for (int q = 0; q < kPerWarp; ++q) {
-            const int j = warp * kPerWarp + q;
-            const int fe = f0 + j;
-            if (fe < s + 2) {
-                const bool a = attack(row + (long long)fe * kHop, lane, c);
-                if (lane == 0) s_flag[j] = a;
-            }
+        const int fe = f0 + warp;
+        if (fe < s + 2) {
+            const bool a = attack(row + (long long)fe * kHop, vec != 0, lane,
+                                  c);
+            if (lane == 0) s_flag[warp] = a;
         }
         __syncthreads();
     }
     const int t = threadIdx.x;
     const int f = f0 + t;
-    if (t < kTileOut && f < s) {
+    if (t < tile && f < s) {
         int v = kLong;
         if (window_switching) {
             const bool ls = s_flag[t], tr = s_flag[t + 1],
@@ -150,27 +197,33 @@ transients_kernel(const T* __restrict__ audio, long long row_stride, int s,
 extern "C" {
 
 // audio [R, row_stride] (int16 if is_int16, else f32), each row holding
-// (s + 3) * 1024 samples from its start; consts [66] f32 on the host
+// (s + 3) * 1024 samples from its start; tile the block types a block
+// writes (1 .. 14; transients.tile_outputs); consts [66] f32 on the host
 // (xpsy.kernel_consts()) -> bt [R, s] int32. Returns cudaGetLastError()
 // after the launch (0 = launched), cudaErrorInvalidValue for bad sizes.
 int mrc_transients(const void* audio, int is_int16, long long row_stride,
-                   int rows, int s, int window_switching,
+                   int rows, int s, int tile, int window_switching,
                    const float* consts, int* bt, void* stream) {
-    if (rows < 1 || rows > 65535 || s < 1
-        || row_stride < (long long)(s + 3) * kHop)
+    if (rows < 1 || rows > 65535 || s < 1 || tile < 1
+        || tile > kMaxWarps - 2 || row_stride < (long long)(s + 3) * kHop)
         return (int)cudaErrorInvalidValue;
     xpsy::Consts c;
     const float* src = consts;
     float* dst = reinterpret_cast<float*>(&c);
     for (int i = 0; i < xpsy::kConsts; ++i) dst[i] = src[i];
-    const dim3 grid((unsigned)((s + kTileOut - 1) / kTileOut), (unsigned)rows);
+    // one load a lane's 4 samples where every row starts on its width
+    const long long size = is_int16 ? 2 : 4;
+    const int vec = (reinterpret_cast<uintptr_t>(audio) % (4 * size) == 0)
+                    && ((row_stride * size) % (4 * size) == 0);
+    const dim3 grid((unsigned)((s + tile - 1) / tile), (unsigned)rows);
+    const unsigned threads = 32u * (unsigned)(tile + 2);
     if (is_int16)
-        transients_kernel<int16_t><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-            static_cast<const int16_t*>(audio), row_stride, s,
+        transients_kernel<int16_t><<<grid, threads, 0, (cudaStream_t)stream>>>(
+            static_cast<const int16_t*>(audio), row_stride, s, tile, vec,
             window_switching, c, bt);
     else
-        transients_kernel<float><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-            static_cast<const float*>(audio), row_stride, s,
+        transients_kernel<float><<<grid, threads, 0, (cudaStream_t)stream>>>(
+            static_cast<const float*>(audio), row_stride, s, tile, vec,
             window_switching, c, bt);
     return (int)cudaGetLastError();
 }

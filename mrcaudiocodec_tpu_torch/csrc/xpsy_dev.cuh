@@ -1,7 +1,6 @@
 // Device math shared by the analysis kernels K5 (transients.cu) and K8
-// (psycho.cu): the normative xlog2 / xexp2 of xpsy.py and its segmented
-// scan, each a copy of the op DAG of mrcaudiocodec_tpu_torch/xpsy.py
-// (xlog2 :72, xexp2 :112, seg_scan :168).
+// (psycho.cu): the normative xlog2 / xexp2 of xpsy.py, each a copy of the
+// op DAG of mrcaudiocodec_tpu_torch/xpsy.py (xlog2 :72, xexp2 :112).
 //
 // Every f32 op is a single correctly-rounded __f*_rn op, in the order of
 // the torch DAG, and the libraries are built with --fmad=false: no
@@ -82,42 +81,6 @@ __device__ __forceinline__ float xexp2(float x, const Consts& c) {
 #pragma unroll
     for (int i = 2; i < 8; ++i) p = __fadd_rn(__fmul_rn(p, cc), c.exp_k[i]);
     return __fmul_rn(p, __int_as_float((k + 127) << 23));
-}
-
-// xpsy.seg_scan over NT * 4 bins in shared memory, thread t owning bins
-// t + NT * j (j = 0..3), start[j] the first bin of bin (t + NT * j)'s
-// segment: stage d (d = 1, 2, 4, ... for `stages` stages) adds the value d
-// bins below where that bin lies in the same segment, p[i] = p[i] +
-// p[i - d] as seg_scan's `p + sh`. Each stage reads before a barrier and
-// writes after it, so every stage sees the previous stage's values, as
-// seg_scan's functional update does. Scans `a` and, where TWO, `b` with
-// the same segments. Ends with a barrier.
-template <int NT, bool TWO>
-__device__ __forceinline__ void seg_scan(float* a, float* b,
-                                         const int (&start)[4], int stages) {
-    for (int st = 0, d = 1; st < stages; ++st, d <<= 1) {
-        float va[4], vb[4];
-        bool take[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int k = threadIdx.x + NT * j;
-            take[j] = k - d >= start[j];
-            if (take[j]) {
-                va[j] = __fadd_rn(a[k], a[k - d]);
-                if (TWO) vb[j] = __fadd_rn(b[k], b[k - d]);
-            }
-        }
-        __syncthreads();
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int k = threadIdx.x + NT * j;
-            if (take[j]) {
-                a[k] = va[j];
-                if (TWO) b[k] = vb[j];
-            }
-        }
-        __syncthreads();
-    }
 }
 
 }  // namespace xpsy

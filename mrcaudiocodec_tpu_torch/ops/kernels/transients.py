@@ -23,6 +23,7 @@ from ... import config as C
 from ... import xpsy
 
 launches = 0            # kernel launches since the last reset
+MAX_TILE = 14           # block types a block writes, at most (16 warps)
 
 
 def hop_frames(audio, s: int, first: int, count: int):
@@ -58,13 +59,31 @@ def transients_plain(audio, window_switching: bool):
                            window_switching)
 
 
+def tile_outputs(rows: int, s: int, sms: int) -> int:
+    """The block types T each block of K5 writes for R rows of s frames
+    on a card of `sms` SMs: a row splits into ceil(s / T) tiles, each of
+    T + 2 warps (one an extended frame, the 2 at its edges shared with the
+    neighbouring tiles). As few tiles a row as T <= MAX_TILE allows, but
+    about 2 * sms blocks over all rows (where a row has frames enough),
+    and T as even over a row's tiles as it goes: 2 x 1293 frames on 132
+    SMs take 2 x 130 tiles of 10, 128 x 64 tiles of 13 (the last 12)."""
+    tiles = max(-(-s // MAX_TILE), -(-2 * sms // rows))
+    tiles = min(tiles, s)
+    return -(-s // tiles)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 @functools.lru_cache(maxsize=1)
 def _fn():
     from .build import lib
     fn = lib("transients").mrc_transients
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -88,10 +107,12 @@ def transients_kernel(audio, window_switching: bool):
     bt = torch.empty((r, s), dtype=torch.int32, device=audio.device)
     if r == 0:
         return bt
+    tile = tile_outputs(r, s, _sms(audio.device.index or 0))
+    consts = xpsy.kernel_consts()           # alive through the call
     with torch.cuda.device(audio.device):   # the tensors' card is current
         rc = _fn()(audio.data_ptr(), int(audio.dtype == torch.int16),
-                   audio.stride(0), r, s, int(bool(window_switching)),
-                   xpsy.kernel_consts().ctypes.data, bt.data_ptr(),
+                   audio.stride(0), r, s, tile, int(bool(window_switching)),
+                   consts.ctypes.data, bt.data_ptr(),
                    torch.cuda.current_stream(audio.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"transients launch failed: cudaError {rc}")

@@ -382,6 +382,60 @@ def kernel_blobs(fs: int, long_block: bool):
     return f32_, i32
 
 
+SCHED_STAGES = 8        # seg_scan stages K8's lane tables hold, at most
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_sched(fs: int, long_block: bool) -> np.ndarray:
+    """i32 lane tables of one block family for K8 (csrc/psycho.cu), which
+    runs a frame on one warp and its scans over the 1024 bins (group g's H
+    bins at g * H) in registers, lane l holding bins 32 l + j; derived
+    from `kernel_blobs`' i32 blob and `psy_tables`' pb_mask:
+      part_take [8, 32], band_take [8, 32]: bit j of (stage st, lane l)
+          is set where bin 32 l + j takes stage st of seg_scan over the
+          partitions / bands (the bin 2^st below it lies in its segment)
+      part_end [NP], band_end [nb]: each segment's last bin in its group
+      band_lo [nb], band_hi [nb]: the partitions pb_mask maps to each
+          band, a contiguous range lo .. hi (lo > hi where none)
+    Offsets: 0, 256, 512, 512 + NP, 512 + NP + nb, 512 + NP + 2 nb."""
+    _, i32 = kernel_blobs(fs, long_block)
+    h, npart, nb = int(i32[1]), int(i32[2]), int(i32[3])
+    groups = int(i32[6])
+    o = 8
+    part_start, o = i32[o:o + h], o + h
+    part_ends, o = i32[o:o + npart], o + npart
+    band_start, o = i32[o:o + h], o + h
+    band_ends, o = i32[o:o + nb], o + nb
+    pb = i32[o:o + npart * nb].reshape(npart, nb).astype(bool)
+    k = np.arange(C.LONG_COEFFS)
+    bitw = np.left_shift(np.int64(1), np.arange(32, dtype=np.int64))
+
+    def lanes(bits):            # [1024] bool -> [32] i32: lane l, bit j
+        v = (bits.reshape(32, 32).astype(np.int64) * bitw).sum(axis=1)
+        return v.astype(np.uint32).view(np.int32)
+
+    takes = []
+    for start, stages in ((part_start, int(i32[4])),
+                          (band_start, int(i32[5]))):
+        if stages > SCHED_STAGES:
+            raise ValueError(f"kernel_sched: {stages} scan stages at {fs} "
+                             f"Hz, the kernel runs {SCHED_STAGES}")
+        abs_start = np.concatenate([g * h + start for g in range(groups)])
+        takes += [lanes((k - (1 << st) >= abs_start) & (st < stages))
+                  for st in range(SCHED_STAGES)]
+    lo = np.full(nb, 0, np.int64)
+    hi = np.full(nb, -1, np.int64)
+    for b in range(nb):
+        idx = np.nonzero(pb[:, b])[0]
+        if len(idx):
+            if idx[-1] - idx[0] + 1 != len(idx):
+                raise ValueError(f"kernel_sched: band {b} at {fs} Hz maps "
+                                 f"to partitions that are not contiguous")
+            lo[b], hi[b] = idx[0], idx[-1]
+    return np.concatenate(takes + [part_ends, band_ends, lo, hi]).astype(
+        np.int32)
+
+
 def spread_apply(e_part, rows):
     """Spreading convolution as a fixed-order sum over masker partitions:
     out = sum_i e[..., i] * rows[i, :], evaluated i = 0..NP-1 with one

@@ -8,10 +8,11 @@ bitwise on every output (bt, coeffs, allowed, pe), the eager chain
 (`encoder._analyze_chunk` on the CPU) and the JAX package's jit A
 (`mrcaudiocodec_tpu.models.encoder._analyze_chunk`, on the CPU as its own
 tests run it). The kernels' constant blobs are held value for value to
-the JAX package's native blobs, and numpy models of two kernel schedules
-(K8's in-place shared-memory scan, K5's warp tree and ladder) to the
-plain DAG. The kernels themselves are held to these plain versions on a
-card (tests/test_torch_kernels.py, chip_smoke.py).
+the JAX package's native blobs, and numpy models of the kernels'
+schedules to the plain DAG: K8's scan in a warp's registers, its band
+ranges and level-wise PE tree; K5's warp tree and ladder and its tile map.
+The kernels themselves are held to these plain versions on a card
+(tests/test_torch_kernels.py, chip_smoke.py).
 """
 import numpy as np
 import pytest
@@ -241,68 +242,167 @@ def test_kernel_consts_are_the_modules_roundings():
 # ---------------------------------------------------------------------------
 
 
-def k8_scan_model(values, start, stages, threads=256):
-    """csrc/xpsy_dev.cuh seg_scan as K8 runs it: shared memory of 4 *
-    threads bins, thread t owning bins t + threads * j; each stage every
-    thread reads its bins' sums (bin + bin - d where bin - d is in its
-    segment) before a barrier and writes them after it."""
-    s = np.array(values, F32)
-    n = s.size
-    assert n == 4 * threads
-    d = 1
-    for _ in range(stages):
-        pending = []
-        for t in range(threads):
-            for j in range(4):
-                k = t + threads * j
-                if k - d >= start[k]:
-                    pending.append((k, F32(s[k] + s[k - d])))
-        for k, v in pending:            # after the barrier
-            s[k] = v
-        d *= 2
-    return s
+def _sched(fs, long_block):
+    """xpsy.kernel_sched split into its tables."""
+    sc = xpsy.kernel_sched(fs, long_block)
+    cst = xpsy.psy_tables(fs, long_block)
+    npart, nb = cst["npart"], cst["nb"]
+    o = 512
+    return {"part_take": sc[0:256].reshape(8, 32),
+            "band_take": sc[256:512].reshape(8, 32),
+            "part_end": sc[o:o + npart],
+            "band_end": sc[o + npart:o + npart + nb],
+            "lo": sc[o + npart + nb:o + npart + 2 * nb],
+            "hi": sc[o + npart + 2 * nb:o + npart + 3 * nb]}
+
+
+def _bit(m, j):
+    return (int(np.uint32(np.int32(m))) >> j) & 1
+
+
+def _keep(v, m, j):
+    """csrc/psycho.cu keep: v where bit j of m is set, else +0 (the bits
+    ANDed with 0)."""
+    mask = np.uint32(0xFFFFFFFF) if _bit(m, j) else np.uint32(0)
+    return (np.asarray(v, F32).view(np.uint32) & mask).view(F32)
+
+
+def k8_scan_model(values, take, stages):
+    """csrc/psycho.cu scan_row, one f32 op at a time: lane l holds bins
+    32 l + j in a[l, j]; stage st (d = 2^st) first takes the partners that
+    come from other lanes (d < 32: a[l - 1, 32 - d + j] for j < d by
+    __shfl_up 1; d >= 32: a[l - d/32, j] by __shfl_up d/32; a lane below
+    the shift gets its own value), then adds to every bin, j running down
+    in the lane, each add on the previous stage's values: the partner
+    where bit j of take[st][l] is set, else its bits ANDed to +0 (keep)
+    -> the scanned 1024 bins."""
+    a = np.array(values, F32).reshape(32, 32)
+    for st in range(stages):
+        d = 1 << st
+        old = a.copy()
+        for l in range(32):
+            m = take[st][l]
+            row = old[l].copy()
+            if d < 32:
+                src = l - 1 if l >= 1 else l
+                up = [old[src, 32 - d + j] for j in range(d)]
+                for j in range(31, d - 1, -1):
+                    row[j] = F32(row[j] + _keep(row[j - d], m, j))
+                for j in range(d):
+                    row[j] = F32(row[j] + _keep(up[j], m, j))
+            else:
+                src = l - d // 32 if l >= d // 32 else l
+                for j in range(32):
+                    row[j] = F32(row[j] + _keep(old[src, j], m, j))
+            a[l] = row
+    return a.reshape(-1)
 
 
 def _family_starts(fs, long_block, which):
-    """K8's absolute segment starts over 1024 bins (group g's bins at
-    g * H, H = 1024 or 128) and the segment ends, from kernel_blobs."""
+    """The family's scan stages, group width H and group count, from
+    kernel_blobs."""
     f32, i32 = xpsy.kernel_blobs(fs, long_block)
     n, h, npart, nb, pst, bst, groups = (int(v) for v in i32[:7])
-    part_start = i32[8:8 + h]
-    part_ends = i32[8 + h:8 + h + npart]
-    band_start = i32[8 + h + npart:8 + 2 * h + npart]
-    band_ends = i32[8 + 2 * h + npart:8 + 2 * h + npart + nb]
-    seg, ends, st = ((part_start, part_ends, pst) if which == "part"
-                     else (band_start, band_ends, bst))
-    start = np.concatenate([g * h + seg for g in range(groups)])
-    end = np.concatenate([g * h + ends for g in range(groups)])
-    return start, end, st, h, groups
+    return (pst if which == "part" else bst), h, groups
 
 
 @pytest.mark.parametrize("fs", [32000, 44100, 48000])
 def test_k8_scan_model_equals_seg_sums(fs):
-    """K8's in-place scan over the group-offset layout leaves, at every
-    segment's end, xpsy.seg_sums' value: partitions and bands of both
-    families, on power spectra with a wide dynamic range and on their
-    xlog2 (negative values)."""
+    """K8's scan of the 1024 bins in a warp's registers, with the lane
+    tables of xpsy.kernel_sched, leaves at every segment's end (the
+    tables' ends, group by group) xpsy.seg_sums' value: partitions and
+    bands of both families, on power spectra with a wide dynamic range and
+    on their xlog2 (negative values)."""
     rng = np.random.default_rng(fs)
     p = (rng.standard_normal(1024) ** 2 * 10.0 ** rng.uniform(-8, 6, 1024)
          ).astype(F32)
     lg = xpsy.xlog2(torch.from_numpy(p) + xpsy.TINY).numpy()
     for long_block in (True, False):
         cst = xpsy.psy_tables(fs, long_block)
+        sc = _sched(fs, long_block)
         for which in ("part", "band"):
-            start, end, stages, h, groups = _family_starts(fs, long_block,
-                                                           which)
+            stages, h, groups = _family_starts(fs, long_block, which)
             edges = cst["part_edges" if which == "part" else "band_edges"]
+            ends = np.concatenate([g * h + sc[f"{which}_end"]
+                                   for g in range(groups)])
             for v in (p, lg):
-                got = k8_scan_model(v, start, stages)[end]
+                got = k8_scan_model(v, sc[f"{which}_take"], stages)[ends]
                 want = xpsy.seg_sums(torch.from_numpy(v).reshape(groups, h),
                                      edges).reshape(-1)
                 assert_bits(got, want)
     # the unified edges of e_mdct are the family's bands, then 0-width ones
     assert kpsycho.check_layout(fs) == \
         len(psycho.unified_band_edges(fs)[0]) - 1
+
+
+@pytest.mark.parametrize("fs", [32000, 44100, 48000])
+def test_k8_band_ranges_equal_pb_mask(fs):
+    """Each band's partition range in the lane tables is exactly the
+    partitions pb_mask maps to it (1 to 4, contiguous), in both
+    families; the slots' group and index by the kernel's multiply-shift
+    equal integer division for every slot a warp holds."""
+    for long_block in (True, False):
+        cst = xpsy.psy_tables(fs, long_block)
+        sc = _sched(fs, long_block)
+        npart, nb = cst["npart"], cst["nb"]
+        i = np.arange(npart)[:, None]
+        ranges = (i >= sc["lo"]) & (i <= sc["hi"])
+        np.testing.assert_array_equal(ranges, cst["pb_mask"])
+        width = sc["hi"] - sc["lo"] + 1
+        assert width.min() >= 1 and width.max() <= 4
+        for n in (npart, nb):
+            magic = (65536 + n - 1) // n
+            s = np.arange(256)
+            np.testing.assert_array_equal((s * magic) >> 16, s // n)
+
+
+def k8_pe_levels_model(terms, nb, groups):
+    """csrc/psycho.cu's PE: each group's nb terms padded with zeros to p2
+    (a power of two) in a row, then level h = p2/2 .. 1 adds v[b] +
+    v[b + h] for b < h, lane i taking pairs i, i + 32, ...; then the
+    groups folded left to right."""
+    p2 = 1 << (nb - 1).bit_length()
+    pev = np.zeros(groups * p2, F32)
+    for g in range(groups):
+        pev[g * p2:g * p2 + nb] = terms[g]
+    h = p2 // 2
+    while h >= 1:
+        lh = h.bit_length() - 1
+        new = pev.copy()
+        for lane in range(32):
+            for i in range(lane, groups * h, 32):
+                k = (i >> lh) * p2 + (i & (h - 1))
+                new[k] = F32(pev[k] + pev[k + h])
+        pev = new
+        h //= 2
+    s = pev[0]
+    for g in range(1, groups):
+        s = F32(s + pev[g * p2])
+    return s
+
+
+@pytest.mark.parametrize("fs", [32000, 44100, 48000])
+def test_k8_pe_levels_model_equals_band_pe(fs):
+    """K8's level-wise PE tree gives xpsy.band_pe's value (long) and
+    xpsy.groups_pe's (short) bit for bit, on band energies and thresholds
+    spread over many decades (silent bands included)."""
+    rng = np.random.default_rng(fs + 1)
+    for long_block, groups in ((True, 1), (False, C.N_SHORT)):
+        cst = xpsy.psy_tables(fs, long_block)
+        nb = cst["nb"]
+        width = torch.from_numpy(cst["width"])
+        for _ in range(4):
+            e = (10.0 ** rng.uniform(-12, 8, (groups, nb))).astype(F32)
+            t = (10.0 ** rng.uniform(-12, 8, (groups, nb))).astype(F32)
+            e[:, ::5] = 0.0
+            et, tt = torch.from_numpy(e), torch.from_numpy(t)
+            s = xpsy.xexp2(0.5 * (xpsy.xlog2(et + xpsy.TINY)
+                                  - xpsy.xlog2(tt + xpsy.TINY)))
+            terms = (width * xpsy.xlog2(1.0 + s)).numpy()
+            got = k8_pe_levels_model(terms, nb, groups)
+            want = (xpsy.band_pe(et[0], tt[0], width) if long_block
+                    else xpsy.groups_pe(et, tt, width))
+            assert_bits(np.asarray(got, F32), want.numpy())
 
 
 def k5_attack_model(frame, cst):
@@ -361,6 +461,62 @@ def test_k5_tree_and_ladder_model_equals_transient_detect(fs):
         s = s + s[..., np.arange(32) ^ o]
     want_e = xpsy.seg_sums(torch.from_numpy(d * d), xpsy._SUB_EDGES).numpy()
     assert_bits(s[..., 0], want_e)
+
+
+def k5_tile_map(rows, s, row_stride, sms=132):
+    """csrc/transients.cu's grid as the wrapper sizes it: T =
+    transients.tile_outputs(rows, s, sms), block (x, r) of T + 2 warps;
+    warp w computes row r's extended frame x T + w where it is < s + 2,
+    reading samples r * row_stride + (x T + w) * HOP + [0, 2048); thread t
+    < T writes bt[r, x T + t] where that is < s, from the flags of warps
+    t, t + 1, t + 2. -> (T, {(r, frame): [the extended frames its flags
+    came from, as (block, warp) pairs]}, {block: sample span read},
+    the warps a block computes nothing with)."""
+    tile = transients.tile_outputs(rows, s, sms)
+    warps = tile + 2
+    grid = -(-s // tile)
+    out, spans, idle = {}, {}, []
+    for r in range(rows):
+        for x in range(grid):
+            f0 = x * tile
+            ext = {w: f0 + w for w in range(warps) if f0 + w < s + 2}
+            idle.append(warps - len(ext))
+            if ext:
+                lo = r * row_stride + min(ext.values()) * C.HOP
+                hi = r * row_stride + max(ext.values()) * C.HOP + 2 * C.HOP
+                spans[(r, x)] = (lo, hi)
+            for t in range(tile):
+                f = f0 + t
+                if f < s:
+                    assert all(t + k in ext for k in range(3))
+                    out.setdefault((r, f), []).append(
+                        [ext[t + k] for k in range(3)])
+    return tile, out, spans, idle
+
+
+@pytest.mark.parametrize("rows,s,stride", [
+    (2, 1293, None), (128, 64, None), (1, 1, None), (3, 31, None),
+    (2, 500, 1296 * 1024)])
+def test_k5_tile_map_covers_every_frame_once(rows, s, stride):
+    """K5's tiles write each block type exactly once, from the flags of
+    the extended frames f, f + 1, f + 2 of its own row, reading only its
+    row's (s + 3) hops (also where rows have a stride of their own, as the
+    sharded path hands them over); a block is at most 16 warps; the 30 s
+    chunk's grid covers all 132 SMs, and at 128 x 64 no tile leaves more
+    than 2 warps idle."""
+    row_stride = stride or (s + 3) * C.HOP
+    tile, out, spans, idle = k5_tile_map(rows, s, row_stride)
+    assert 1 <= tile <= transients.MAX_TILE
+    assert sorted(out) == [(r, f) for r in range(rows) for f in range(s)]
+    for (r, f), srcs in out.items():
+        assert srcs == [[f, f + 1, f + 2]]
+    for (r, x), (lo, hi) in spans.items():
+        assert r * row_stride <= lo and hi <= r * row_stride + (s + 3) * C.HOP
+    blocks = rows * -(-s // tile)
+    if (rows, s) == (2, 1293):
+        assert tile == 10 and blocks >= 132
+    if (rows, s) == (128, 64):
+        assert tile == 13 and max(idle) <= 2
 
 
 def test_analyze_turns_needs_a_card(tmp_path):

@@ -806,3 +806,31 @@ def test_analysis_kernels_match_plain_on_card(fs, case):
     same(encoder._analyze_chunk(a, cfg), encoder._analyze_chunk(a.cpu(), cfg))
     if "transient" in kind and ws:
         assert (bt == 2).any()
+
+
+@pytest.mark.cuda
+def test_psycho_kernel_alignment_on_card():
+    """K8 reads its five float inputs with 16-byte loads and bt an int at a
+    time: a bt view at any int offset is taken and gives the same bits, a
+    float input off 16 bytes raises."""
+    _need_card()
+    fs = 44100
+    a = torch.from_numpy(_analysis_rows(fs, "transient", 40, 3)).cuda()
+    bt = transients.transients_plain(a, True).reshape(-1)
+    pre = analysis_pre.analysis_pre_plain(a, bt.view(a.shape[0], -1), "sine")
+    spec = [fft_stages.fft_plain(pre[i], pre[i + 1]) for i in range(0, 8, 2)]
+    co = mdct_post.mdct_post_plain(*spec[0], *spec[1], bt)
+    want = psycho.psycho_plain(*spec[2], *spec[3], co, bt, fs, True)
+    buf = torch.zeros(bt.numel() + 1, dtype=torch.int32, device="cuda")
+    bt1 = buf[1:]                                      # 4-byte offset
+    bt1.copy_(bt)
+    got = psycho.psycho_kernel(*spec[2], *spec[3], co, bt1, fs, True)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu().view(torch.int32),
+                           w.cpu().view(torch.int32))
+    fbuf = torch.zeros(co.numel() + 1, dtype=torch.float32, device="cuda")
+    co1 = fbuf[1:].view(co.shape)
+    co1.copy_(co)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        psycho.psycho_kernel(*spec[2], *spec[3], co1, bt, fs, True)
