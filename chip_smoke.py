@@ -5,7 +5,7 @@
 
 Phases, in order; any failure raises, so the exit code is non-zero:
   1. card: name and power limit (nvidia-smi), CUDA version, capability 9.0
-  2. build: the main path's eight CUDA kernels from csrc/ (nvcc, one
+  2. build: the main path's ten CUDA kernels from csrc/ (nvcc, one
      process per source started together, -Xptxas -v per kernel); K4's
      blocks resident an SM (the occupancy calculator), at least 7, and
      K8's frames in flight an SM, at least 20 (2 blocks of 10 warps)
@@ -33,7 +33,13 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      chunk (48 kHz), 32 kHz, the kbd window, window switching off, full
      psycho off, an all-silent chunk, a transient-dense chunk (SHORT
      frames) and strided rows, and the whole kernel path of
-     encoder._analyze_chunk on the card == the eager chain on the CPU
+     encoder._analyze_chunk on the card == the eager chain on the CPU;
+     the decoder's synthesis kernels K9 synth_pre and K10 synth_post (f32
+     and int16 PCM) on every slab of the goldens' streams, a 48 kHz, a
+     32 kHz and a kbd stereo stream, a SHORT-dense stream, a stream silent
+     across its seams at DEC_CHUNK 5 and the crafted escapes beyond QMAX,
+     each stream's card decode == its CPU decode; K9 and K10 also on the
+     30 s decode's own inputs (2048 and 538 frame rows)
   4. on those captured inputs, each kernel's time (CUDA events, and the
      profiler's device time per launch) beside its plain version's, one
      PyTorch library call where one exists (torch.fft.fft for K1) and the
@@ -47,7 +53,7 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      psycho off, a SHORT-dense chunk against as many mostly-long rows, the
      batch's 8192) and K5's (k5_locate: the 30 s chunk's 2 rows, its row 0
      alone, the batch chunk), each beside its bound; the SASS instruction
-     mix of K1-K8
+     mix of K1-K10
   5. goldens g1-g6 encoded on the card (records built by K3) against their
      SHA-256 digests; each decoded on the card and on the CPU, PCM bitwise
      equal
@@ -57,19 +63,23 @@ Phases, in order; any failure raises, so the exit code is non-zero:
   7. full size: the benchmark clip (30 s stereo 44.1 kHz 128 kbps, int16)
      encoded and decoded on the card, kernel launch counts of that run (K4
      once and K2 twice a chunk, K5-K8 once and K1 four times a chunk in
-     the encode, no RD host sync, no plain RD loop; the
+     the encode, no RD host sync, no plain RD loop; K9 and K10 once and K1
+     twice a chunk in the decode, nothing else; the
      plain path's host syncs on the same clip beside them), then one
      warm-up and 5 timed runs of each
   8. where the time goes: host-clock ms per encode/decode stage (the pack
      stage as the stream order built and uploaded, device pack, download
      of the compact stream body and assemble, beside the host-pack path,
-     with the bytes each downloads),
+     with the bytes each downloads; the decode as parse, upload, synth,
+     download and seam),
      and the card's busy share
-     with the top kernels (torch.profiler), with K1-K8's
+     with the top kernels (torch.profiler), with K1-K10's
      launches and device ms in one encode and one decode; the analysis
      alone (_analyze_chunk on the clip's chunk): its launch count and
      device events (K5, K6, K1 x 4, K7, K8 and nothing else), device ms,
-     best wall and busy share; decide_chunk on
+     best wall and busy share; _synth_chunk alone on each of the decode's
+     two chunks the same way (K9, K1 x 2, K10 and nothing else);
+     decide_chunk on
      the clip's chunk with K4, with the loop in its plain version (the
      parent's path) and with every kernel plain, in turns: wall, device
      ms, host syncs
@@ -77,7 +87,8 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      four probe libraries and the --fmad=true control, runs each probe
      module on the card with the launch counts, asserts P3's
      classifications and the SASS audit (no FFMA, no .FTZ where the
-     sources allow none; FFMA in the control), holds each of the 15 probe
+     sources allow none, so in none of K1-K10's libraries; FFMA in the
+     control), holds each of the 15 probe
      bodies against its plain version (bitwise; v1 within 4 if exp2f/powf
      differ), and times each beside its plain version, its bound and a
      library call; P1 and P4 again at 2048 rows
@@ -86,19 +97,20 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      counts of that run; every stream == the clip's single-clip card
      encode, and a 5-clip mixed-length bucket too; wall time (5 timed runs
      after a warm-up), real-time factor, frames/s, peak device memory and
-     the card's busy share, and the device time outside K1-K8
+     the card's busy share, and the device time outside K1-K10
  11. the CLI: python -m mrcaudiocodec_tpu_torch.cli encode, info, decode in
      subprocesses on a WAV the script writes; the .mrc bytes == codec.encode
      and the WAV == codec.decode on the card
  12. the parallel path (parallel/), on the card: acceptance config 3 (5 min
      48 kHz stereo 192 kbps) encoded on the card == its card encode with
-     K1-K8 swapped for their plain versions; (a) sharded encode, every
+     K1-K10 swapped for their plain versions, its card decode == the
+     decode with K9 and K10 swapped for theirs; (a) sharded encode, every
      shard in turn in this process (LocalShards): the 30 s clip at (data,
      seq) = (1, 4), (2, 2), (2, 1) == codec.encode, config 3 at (1, 4) ==
      its unsharded encode, the 64 x 10 s batch at (4, 2) == phase 10's
      streams; (b) sharded decode of the 30 s stream at (1, 4), (2, 2) ==
-     codec.decode float32 bitwise; the K1-K8 launch counts of (a) and of
-     (b); K1-K8 held bitwise to their plain versions on the inputs the
+     codec.decode float32 bitwise; the K1-K10 launch counts of (a) and of
+     (b) (the decodes: K9, K1, K10 only); K1-K10 held bitwise to their plain versions on the inputs the
      (1, 4) encodes and decode gave them (captured at the wrappers, every
      shard's); walls of (a) at (1, 4) beside the unsharded encode; (c)
      corpus.encode_batch over devices ["cuda:0", "cuda:0"] == the
@@ -111,8 +123,9 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      host-clock ms)
  13. the bench: mrcaudiocodec_tpu_torch.bench.main(["--full", "--kernels"])
      in this process at its default sizes (the 30 s clip, the spec on
-     4 s), with K1-K8's launch counts around it and their plain versions
-     counted too (none may run); its JSON line has the root bench.py's 11
+     4 s), with K1-K10's launch counts around it and their plain versions
+     counted too (none may run), its device-resident decode K9, K1 x 2
+     and K10 a slab and nothing else; its JSON line has the root bench.py's 11
      keys, the stream equals the port's spec's, segSNR and PSNR equal the
      spec's; every value logged beside the card's name and power limit
  14. one JSON line listing the kernels
@@ -220,8 +233,10 @@ def full_clip():
 
 
 KERNELS = ("fft_stages", "quant_cost", "record_pack", "rd_loop",
-           "transients", "analysis_pre", "mdct_post", "psycho")
-ANALYSIS = KERNELS[4:]
+           "transients", "analysis_pre", "mdct_post", "psycho",
+           "synth_pre", "synth_post")
+ANALYSIS = ("transients", "analysis_pre", "mdct_post", "psycho")
+SYNTHESIS = ("synth_pre", "synth_post")
 
 
 def rd_loop_plain_all(*args):
@@ -232,12 +247,16 @@ def rd_loop_plain_all(*args):
 
 
 def kernel_pair(name):
-    """(kernel wrapper, plain version) of K1-K8 by name."""
+    """(kernel wrapper, plain version) of K1-K10 by name."""
     from mrcaudiocodec_tpu_torch.ops import device_pack
     from mrcaudiocodec_tpu_torch.ops.kernels import (
         analysis_pre, fft_stages, mdct_post, psycho, quant_cost, rd_loop,
-        record_pack, transients)
+        record_pack, synth_post, synth_pre, transients)
     return {"fft_stages": (fft_stages.fft_kernel, fft_stages.fft_plain),
+            "synth_pre": (synth_pre.synth_pre_kernel,
+                          synth_pre.synth_pre_plain),
+            "synth_post": (synth_post.synth_post_kernel,
+                           synth_post.synth_post_plain),
             "transients": (transients.transients_kernel,
                            transients.transients_plain),
             "analysis_pre": (analysis_pre.analysis_pre_kernel,
@@ -253,16 +272,14 @@ def kernel_pair(name):
 
 
 def kernel_modules():
-    """The kernel wrappers' modules, K1-K8 in order."""
-    from mrcaudiocodec_tpu_torch.ops.kernels import (
-        analysis_pre, fft_stages, mdct_post, psycho, quant_cost, rd_loop,
-        record_pack, transients)
-    return (fft_stages, quant_cost, record_pack, rd_loop, transients,
-            analysis_pre, mdct_post, psycho)
+    """The kernel wrappers' modules, K1-K10 in order (KERNELS')."""
+    from mrcaudiocodec_tpu_torch import profiling
+    check(profiling.KERNEL_NAMES == KERNELS, "profiling.KERNEL_NAMES differ")
+    return profiling.kernel_modules()
 
 
 def plain_path(run, names=KERNELS):
-    """run() with the named kernels' wrappers (default K1-K8) replaced by
+    """run() with the named kernels' wrappers (default K1-K10) replaced by
     their plain PyTorch versions (on the same card) -> what run()
     returns. K4's plain version takes its payloads from K2's wrapper, so
     names=("rd_loop",) is the path before K4: the loop in PyTorch, K2 for
@@ -271,7 +288,7 @@ def plain_path(run, names=KERNELS):
     attrs = {"fft_stages": "fft_kernel", "quant_cost": "payload_bits_kernel",
              "record_pack": "pack_stream_kernel",
              "rd_loop": "rd_loop_kernel", **{n: f"{n}_kernel"
-                                             for n in ANALYSIS}}
+                                             for n in ANALYSIS + SYNTHESIS}}
     mods = dict(zip(KERNELS, kernel_modules()))
     swaps = [(mods[n], attrs[n], n) for n in names]
     saved = [getattr(mod, attr) for mod, attr, _ in swaps]
@@ -302,16 +319,17 @@ def hold_to_plain(caps, where, err):
 
 
 def main_path_inputs(dev):
-    """The inputs K1-K8 get on the main path, captured at their wrappers:
+    """The inputs K1-K10 get on the main path, captured at their wrappers:
     {"encode": one encode of the 30 s stereo clip (one chunk of 1293
     frames x 2 rows = 2586 frame rows), "decode": its decode (chunks of
-    1024 and 269 frames x 2 rows), "corpus": one 64 x 10 s stereo batch
+    1024 and 269 frames x 2 rows, 2048 and 538 frame rows for K1, K9 and
+    K10), "corpus": one 64 x 10 s stereo batch
     (128 rows x chunks of 64 frames = 8192 frame rows)}, each as
     capture_inputs gives it. K2 runs the inner sweep (G=32, then G=8) and
     K4 the loop after it."""
     from mrcaudiocodec_tpu_torch import config as C
     from mrcaudiocodec_tpu_torch import corpus
-    from mrcaudiocodec_tpu_torch.models import codec, encoder
+    from mrcaudiocodec_tpu_torch.models import codec, decoder, encoder
     from mrcaudiocodec_tpu_torch.profiling import capture_inputs
     cfg, xi = full_clip()
     box = []
@@ -331,6 +349,16 @@ def main_path_inputs(dev):
                 corpus.FRAME_BUCKET * -(-C.frames_for_samples(
                     clips[0].shape[0]) // corpus.FRAME_BUCKET),
                 2 * len(clips))[0][1]}
+    # the decode's chunks: DEC_CHUNK frames, then the rest, x 2 rows
+    nf30 = C.frames_for_samples(xi.shape[0])
+    for r in (cfg.channels * decoder.DEC_CHUNK,
+              cfg.channels * (nf30 - decoder.DEC_CHUNK)):
+        for name in SYNTHESIS:
+            check((name, (r,)) in out["decode"],
+                  f"decode: no kernel input at {(name, (r,))}")
+    log(f"[kernels] decode: K9 and K10 inputs captured at "
+        f"{cfg.channels * decoder.DEC_CHUNK} and "
+        f"{cfg.channels * (nf30 - decoder.DEC_CHUNK)} frame rows")
     for where, r in rows.items():
         log(f"[kernels] {where}: {r} frame rows a chunk")
         for key in (("quant_cost", (r, 32)), ("quant_cost", (r, 8)),
@@ -381,7 +409,9 @@ def phase_build():
         "at 2 x 1293, 13 at 128 x 64 on 132 SMs); analysis_pre: static "
         "shared memory, a block a frame; psycho: dynamic shared memory, two "
         "rows of 1056 words and one of 512 a warp, a warp a frame (below); "
-        "mdct_post: none")
+        "mdct_post: none; synth_pre: static shared memory (4 KB, a "
+        "frame's dequantized bins), a block a frame; synth_post: none, a "
+        "block a hop")
     from mrcaudiocodec_tpu_torch.ops.kernels import psycho, rd_loop
     resident = rd_loop.blocks_per_sm()
     log(f"[build] rd_loop: {resident} blocks (of 128 threads) resident an "
@@ -456,7 +486,8 @@ def phase_kernels(dev):
                 check(ok, f"quant_cost fs={fs} G={g} amp={amp_kind} differs")
     err["record_pack"] = phase_kernels_record_pack(dev, rng)
     phase_analysis(dev, err)
-    # the four kernels on the inputs the main path gives them
+    phase_synthesis(dev, err)
+    # the kernels on the inputs the main path gives them
     inputs = main_path_inputs(dev)
     for where, caps in inputs.items():
         hold_to_plain(caps, where, err)
@@ -724,6 +755,140 @@ def phase_analysis(dev, err):
     log(f"[analysis] every case held in {time.perf_counter() - t0:.1f} s")
 
 
+def synthesis_cases(dev):
+    """K9's and K10's input slabs -> [(name, fs, window, [(q, e_band, bt)
+    numpy slabs], stream or None)]: the goldens g1-g6 (44.1, 48 and 32
+    kHz, mono and stereo, window switching off, the kbd window), a 48 kHz
+    and a 32 kHz stereo stream, the kbd window in stereo, a SHORT-dense
+    stream, a stream silent from 1/8 of its length at DEC_CHUNK 5 (-0
+    samples across the seams), and the crafted escapes beyond QMAX of
+    tests/test_torch_hardening.py (exponents 14, 15 and 18; the int16 slab
+    gives -16507, -32768 and 0) as two-frame slabs."""
+    from mrcaudiocodec_tpu_torch import config as C
+    from mrcaudiocodec_tpu_torch import native
+    from mrcaudiocodec_tpu_torch import tables as T
+    from mrcaudiocodec_tpu_torch.bench import make_clip
+    from mrcaudiocodec_tpu_torch.config import CodecConfig
+    from mrcaudiocodec_tpu_torch.models import codec, decoder
+    from mrcaudiocodec_tpu_torch.utils.bits import BitWriter
+    out = []
+
+    def add(name, x, cfg, chunk=None):
+        bs = codec.encode(x, cfg, device=dev)
+        saved = decoder.DEC_CHUNK
+        decoder.DEC_CHUNK = chunk or saved
+        try:
+            slabs = decoder.record_slabs(bs)
+        finally:
+            decoder.DEC_CHUNK = saved
+        out.append((name, cfg.fs, cfg.window, slabs, bs, chunk))
+
+    for name, fs, ch, br, kw, _ in GOLDEN:
+        add(f"golden {name}", make_golden_clip(fs, 0.7, ch),
+            CodecConfig(fs=fs, channels=ch, bitrate=br, **kw))
+    for fs, kw in ((48000, {}), (32000, {}), (44100, {"window": "kbd"})):
+        add(f"{fs} Hz {kw.get('window', 'sine')} stereo",
+            make_clip(fs, 3.0, 2, seed=9),
+            CodecConfig(fs=fs, channels=2, bitrate=128000, **kw))
+    rng = np.random.default_rng(11)
+    xt = (0.01 * rng.standard_normal((44100 * 3, 2))).astype(np.float32)
+    for pos in range(300, xt.shape[0] - 200, 1500):
+        xt[pos:pos + 40] += (0.8 * rng.standard_normal((40, 2))).astype(
+            np.float32)
+    add("SHORT-dense", np.clip(xt, -1, 1),
+        CodecConfig(fs=44100, channels=2, bitrate=128000))
+    xf = make_clip(44100, 0.5, 2, seed=4)
+    xf[xf.shape[0] // 8:] = 0.0
+    add("silence across seams at DEC_CHUNK 5", xf,
+        CodecConfig(fs=44100, channels=2, bitrate=128000), chunk=5)
+    lay, ca = T.unified_layout(44100), T.code_arrays()
+    real = np.where(lay["width"][C.LONG] > 0)[0]
+    for run, suffix in ((10, 123), (11, 0), (14, 0)):
+        w = BitWriter()
+        w.write(C.LONG, C.BLOCK_TYPE_BITS)
+        w.write(100, C.GAIN_BITS)
+        for b in real:
+            w.write(C.CB_ESC if b == real[0] else C.CB_ZERO, C.CB_BITS)
+        for _ in real:
+            w.write(int(ca["codes_sf"][C.SF_DELTA_MAX]),
+                    int(ca["len_sf"][C.SF_DELTA_MAX]))
+        sym = 16 * (C.ESC_MAG + 1)
+        w.write(int(ca["codes_esc"][sym]), int(ca["len_esc"][sym]))
+        w.write(1, 1)
+        w.write((1 << run) - 1, run)
+        w.write(0, 1)
+        w.write(suffix, 4 + run)
+        w.write(0, 64)
+        q, e, bt, _ = native.decode_records(w.getvalue() + bytes(8),
+                                            np.zeros(1, np.int64), 44100)
+        slab = tuple(np.ascontiguousarray(np.repeat(a[None], 2, 1))
+                     for a in (q.astype(np.int16), e.astype(np.int16),
+                               bt.astype(np.int8)))
+        out.append((f"escape beyond QMAX (exponent {4 + run}, q "
+                    f"{int(q[0, 0])} -> int16 {int(slab[0][0, 0, 0])})",
+                    44100, "sine", [slab], None, None))
+    return out
+
+
+def phase_synthesis(dev, err):
+    """K9 and K10 against their plain versions on the card, bitwise, on
+    every slab of synthesis_cases(): K9 on the records, K10 (f32 and
+    int16 PCM) on K1's outputs of K9's plain outputs; then each stream's
+    card decode (f32 and int16, at the case's DEC_CHUNK) == its CPU decode.
+    err: max |err| by kernel, updated."""
+    import torch
+    from mrcaudiocodec_tpu_torch import config as C
+    from mrcaudiocodec_tpu_torch.models import codec, decoder
+    from mrcaudiocodec_tpu_torch.ops.kernels import (fft_stages, synth_post,
+                                                     synth_pre)
+    for name in SYNTHESIS:
+        err.setdefault(name, 0.0)
+
+    def hold(kname, where, got, want):
+        got, want = outputs(kname, got, want)
+        ok = all(bits_equal(g, w) for g, w in zip(got, want))
+        err[kname] = max([err[kname]] + [max_abs_err(g, w)
+                                         for g, w in zip(got, want)])
+        check(ok, f"{kname} differs from its plain version on '{where}'")
+        return ok
+
+    t0 = time.perf_counter()
+    for name, fs, window, slabs, bs, chunk in synthesis_cases(dev):
+        rows = 0
+        for slab in slabs:
+            args = tuple(torch.from_numpy(a).to(dev) for a in slab)
+            rows = max(rows, args[2].numel())
+            pre = synth_pre.synth_pre_plain(*args, fs)
+            hold("synth_pre", name, synth_pre.synth_pre_kernel(*args, fs),
+                 pre)
+            spec = (*fft_stages.fft_kernel(*pre[:2]),
+                    *fft_stages.fft_kernel(*pre[2:]))
+            for pcm16 in (False, True):
+                hold("synth_post", name, synth_post.synth_post_kernel(
+                    *spec, args[2], window, pcm16),
+                    synth_post.synth_post_plain(*spec, args[2], window,
+                                                pcm16))
+        n_short = sum(int((s[2] == C.SHORT).sum()) for s in slabs)
+        same = "no stream"
+        if bs is not None:
+            saved = decoder.DEC_CHUNK
+            decoder.DEC_CHUNK = chunk or saved
+            try:
+                same = all(bits_equal(codec.decode(bs, device=dev,
+                                                   pcm_dtype=d)[0],
+                                      codec.decode(bs, device="cpu",
+                                                   pcm_dtype=d)[0])
+                           for d in ("float32", "int16"))
+            finally:
+                decoder.DEC_CHUNK = saved
+            check(same, f"'{name}': the card decode differs from the CPU's")
+        log(f"[synthesis] {name}: {len(slabs)} slabs (up to {rows} frame "
+            f"rows, {n_short} SHORT frames; fs {fs}, {window}): K9 and K10 "
+            f"== plain bitwise: True; card decode == CPU decode (f32, "
+            f"int16): {same}")
+    log(f"[synthesis] every case held in {time.perf_counter() - t0:.1f} s")
+
+
 def outputs(name, got, want):
     """A kernel's and its plain version's outputs as tuples to compare,
     after a synchronize: K3's body cut to the `total` bytes the plain
@@ -894,13 +1059,14 @@ def phase_full(dev):
     import torch
     from mrcaudiocodec_tpu_torch import config as C
     from mrcaudiocodec_tpu_torch.bench import segmental_snr
-    from mrcaudiocodec_tpu_torch.models import codec, encoder
+    from mrcaudiocodec_tpu_torch.models import codec, decoder, encoder
     from mrcaudiocodec_tpu_torch.ops import rd
     seconds = 30.0
     cfg, xi = full_clip()
     x = xi.astype(np.float32) / np.float32(32768.0)
     chunks = len(encoder.chunk_spans(C.frames_for_samples(xi.shape[0]),
                                      cfg.channels))
+    dec_chunks = -(-C.frames_for_samples(xi.shape[0]) // decoder.DEC_CHUNK)
 
     kernels = kernel_modules()
     plain_loops = [0]
@@ -935,9 +1101,10 @@ def phase_full(dev):
     bs_plain = plain_path(lambda: codec.encode(xi, cfg, device=dev))
     plain_syncs = rd.host_syncs
     log(f"[full] launches in one encode ({chunks} chunk): {enc_launch}; in "
-        f"one decode: {dec_launch}; RD loop-exit host syncs in the encode: "
+        f"one decode ({dec_chunks} chunks): {dec_launch}; RD loop-exit host "
+        f"syncs in the encode: "
         f"{syncs}, plain RD loops run: {plain_loops[0]}; the same encode "
-        f"with K1-K8 plain: {plain_syncs} host syncs, stream equal: "
+        f"with K1-K10 plain: {plain_syncs} host syncs, stream equal: "
         f"{bs_plain == bs}")
     check(enc_launch["fft_stages"] == 4 * chunks,
           f"encode launched fft_stages {enc_launch['fft_stages']} times, "
@@ -957,7 +1124,13 @@ def phase_full(dev):
           f"the card encode ran the plain RD loop ({syncs} host syncs)")
     check(bs_plain == bs, "the plain-path encode's stream differs")
     check(enc_launch["record_pack"] > 0, "encode launched no record_pack")
-    check(dec_launch["fft_stages"] > 0, "decode launched no fft_stages")
+    want_dec = {**{k: 0 for k in KERNELS}, "fft_stages": 2 * dec_chunks,
+                **{k: dec_chunks for k in SYNTHESIS}}
+    check(dec_launch == want_dec,
+          f"decode launched {dec_launch}, not K9 and K10 once and K1 twice "
+          f"a chunk and nothing else")
+    for name in SYNTHESIS:
+        check(enc_launch[name] == 0, f"encode launched {name}")
     check(y.shape == x.shape and np.isfinite(y).all(),
           f"decoded shape {y.shape} or values wrong")
     kbps = len(bs) * 8 / seconds / 1000
@@ -1016,6 +1189,7 @@ def phase_breakdown(dev):
     laps around each stage (each closed by a synchronize), and the card's
     busy share from torch.profiler's kernel times over one whole run."""
     import torch
+    from mrcaudiocodec_tpu_torch import bitstream
     from mrcaudiocodec_tpu_torch import config as C
     from mrcaudiocodec_tpu_torch.models import codec, decoder, encoder, packing
     from mrcaudiocodec_tpu_torch.ops import device_pack, rd, reservoir
@@ -1077,12 +1251,30 @@ def phase_breakdown(dev):
     packed_host = packing.pack_stream(arrays, nf, xi.shape[0], cfg)
     lap("host.pack", t)
     check(packed_host == bs, "the host-packed stream differs")
+    # the stages of decoder.decode (int16 PCM), called one by one
+    _, _, n_samples, _ = bitstream.read_header(bs)
     t = time.perf_counter()
-    decoder.parse_records(bs)
+    slabs = decoder.record_slabs(bs)
     lap("dec.parse", t)
     t = time.perf_counter()
-    codec.decode(bs, device=dev, pcm_dtype="int16")
+    staged = [tuple(torch.from_numpy(a).to(dev) for a in slab)
+              for slab in slabs]
+    lap("dec.upload", t)
+    t = time.perf_counter()
+    outs = [decoder._synth_chunk(*sl, cfg.fs, cfg.window, True)
+            for sl in staged]
+    lap("dec.synth", t)
+    t = time.perf_counter()
+    outs = [[o.cpu().numpy() for o in out] for out in outs]
+    lap("dec.download", t)
+    t = time.perf_counter()
+    y = decoder.join_chunks(outs, n_samples, True)
+    lap("dec.seam", t)
+    t = time.perf_counter()
+    y_ref, _ = codec.decode(bs, device=dev, pcm_dtype="int16")
     lap("dec.total", t)
+    check(np.array_equal(y, y_ref), "the staged decode differs from "
+          "codec.decode")
     log("[breakdown] 30 s stereo, host-clock ms per stage: "
         + json.dumps({k: round(v, 3) for k, v in laps.items()}))
     sizes = {"decisions": sum(t.numel() * t.element_size()
@@ -1162,6 +1354,43 @@ def phase_breakdown(dev):
     check(counts == want and not other,
           f"the analysis launched {counts} and ran other device events "
           f"{other}, not K5, K6, K1 x 4, K7 and K8 alone")
+
+    # the synthesis of each of the decode's chunks alone, the same way:
+    # K9, K1 x 2 and K10 and no other device event
+    for sl in staged:
+        def synth(sl=sl):
+            return decoder._synth_chunk(*sl, cfg.fs, cfg.window, True)
+        walls = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            synth()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        for k in mods:
+            k.launches = 0
+        prof, rows = profile_once(synth)
+        counts = {k.__name__.rsplit(".", 1)[-1]: k.launches for k in mods}
+        events = sum(r[2] for r in rows)
+        dms = sum(r[1] for r in rows)
+        tot = kernel_device_totals(prof, [f"{k}_kernel" for k in KERNELS])
+        named = {k: tot[f"{k}_kernel"] for k in KERNELS
+                 if tot[f"{k}_kernel"][0]}
+        other = [(k[:60], c) for k, _, c in rows
+                 if not any(f"{n}_kernel" in k for n in KERNELS)]
+        best = min(walls[1:])
+        log(f"[breakdown] _synth_chunk ({sl[2].shape[1]} frames x "
+            f"{sl[2].shape[0]} rows, int16) on the card: {events} device "
+            f"events (launch count), {dms:.4f} ms device, best wall "
+            f"{best:.3f} ms of 5 (ms {[round(w, 3) for w in walls[1:]]}), "
+            f"busy share {dms / best:.3f}; kernels (launches, device ms) "
+            f"{json.dumps(named)}; other events {other}; launch counts "
+            f"{counts}")
+        want = {**{k: 0 for k in KERNELS}, "fft_stages": 2,
+                **{k: 1 for k in SYNTHESIS}}
+        check(counts == want and not other and events == 4,
+              f"the synthesis launched {counts} and ran other device "
+              f"events {other}, not K9, K1 x 2 and K10 alone")
 
     # decide_chunk on the clip's chunk: with K4; with the loop in its
     # plain version and K2 for every sweep (the path before K4); with
@@ -1393,7 +1622,8 @@ def phase_times(dev, inputs, rd_sets):
     kernels line takes the 30 s clip's encode: K1 summed over the four FFT
     layouts of its one chunk (2586 frame rows), K2 at G=32 over those rows,
     K3 on its 2586 records, K4 on its 2586 rows (its plain version with
-    K2's plain payloads). Every other captured input (K2 at G=8, the
+    K2's plain payloads), K5-K8 on its 2586 rows; K9 and K10 take the
+    30 s decode's first chunk (2048 frame rows). Every other captured input (K2 at G=8, the
     decode's FFTs, the 64-clip batch's chunk of 8192 frame rows) is timed
     too and kept under by_shape. Event ms hold the host's launch interval
     where a kernel is short (and K3's read of its status); device ms (the
@@ -1408,7 +1638,8 @@ def phase_times(dev, inputs, rd_sets):
                 if key[0] == name:
                     by_shape[f"{where} {key[1]}"] = time_input(where, key,
                                                                args)
-        enc = {k: v for k, v in by_shape.items() if k.startswith("encode")}
+        src = "decode" if name in SYNTHESIS else "encode"
+        enc = {k: v for k, v in by_shape.items() if k.startswith(src)}
         if name == "fft_stages":
             # one encode's four launches, summed; its bound from their
             # summed bytes and ops
@@ -1457,7 +1688,7 @@ MIX_CLASSES = {
 
 
 def log_instruction_mix():
-    """Each K1-K8 kernel's SASS instructions (cuobjdump -sass), by
+    """Each K1-K10 kernel's SASS instructions (cuobjdump -sass), by
     class: the static counts the device times are read against (K1's
     kernels are straight-line code, K2's gain loop is unrolled over a
     lane's 8 tuples, 32 bins, K3's over a lane's 16 pairs, twice; K4
@@ -1633,6 +1864,12 @@ def phase_probes(dev):
     check("fma" in cls["control k1 a*b-c (--fmad=true)"],
           "the --fmad=true control's k1 shows no contraction")
     check(not fr["audit_failures"], f"SASS audit: {fr['audit_failures']}")
+    for lib in SYNTHESIS:
+        a = fr["audit"][lib]
+        log(f"[probes] SASS audit lib{lib}.so: {a['FFMA']} FFMA, {a['FTZ']} "
+            f".FTZ in {len(a['functions'])} kernels")
+        check(a["FFMA"] == 0 and a["FTZ"] == 0,
+              f"lib{lib}.so holds FFMA or .FTZ")
     g32 = results["quant_g32"]
     log(f"[probes] P1 phase 1 (K2 vs plain) mismatches {g32['phase1']}; "
         f"phase 2 (native IEEE vs rev 4) mismatches {g32['phase2']}; "
@@ -1728,7 +1965,8 @@ def phase_corpus(dev):
         f"card: first run {first_ms:.1f} ms, launches {launches}, peak "
         f"device memory {peak} B")
     for name, n in launches.items():
-        check(n > 0, f"the corpus batch launched no {name}")
+        check((n > 0) != (name in SYNTHESIS),
+              f"the corpus batch launched {name} {n} times")
     same = [o == codec.encode(x, cfg, device=dev) for o, x in zip(outs, clips)]
     log(f"[corpus] streams equal to single-clip card encodes: "
         f"{sum(same)}/{len(clips)}")
@@ -1766,8 +2004,8 @@ def phase_corpus(dev):
              "kernel_device": {k: tot[f"{k}_kernel"] for k in KERNELS}}
     kern = sum(ms for _, ms in stats["kernel_device"].values())
     stats["outside_kernels_ms"] = busy - kern
-    log(f"[corpus] device time outside K1-K8: {busy - kern:.2f} ms of "
-        f"{busy:.2f} ({(busy - kern) / busy:.3f} of it); K1-K8 "
+    log(f"[corpus] device time outside K1-K10: {busy - kern:.2f} ms of "
+        f"{busy:.2f} ({(busy - kern) / busy:.3f} of it); K1-K10 "
         f"{kern:.2f} ms")
     log(f"[corpus] wall ms {walls} (best {best:.1f}, median "
         f"{stats['median_ms']:.1f}); RTF {stats['realtime_factor']:.1f}x; "
@@ -1931,11 +2169,24 @@ def phase_parallel(dev, corpus_streams, err):
     t0 = time.perf_counter()
     plain3 = plain_path(lambda: codec.encode(x3, cfg3, device=dev))
     log(f"[parallel] config 3 card stream == the card encode through the "
-        f"plain versions of K1-K8: {want3 == plain3} (plain run "
+        f"plain versions of K1-K10: {want3 == plain3} (plain run "
         f"{time.perf_counter() - t0:.2f} s host clock)")
     check(want3 == plain3, "config 3's card stream differs from its plain "
           "encode")
     del plain3
+    # and its card decode held to the decode with K9 and K10 swapped for
+    # their plain versions (K1 stays the kernel)
+    t0 = time.perf_counter()
+    y3 = codec.decode(want3, device=dev)[0]
+    t_dec3 = time.perf_counter() - t0
+    y3_plain = plain_path(lambda: codec.decode(want3, device=dev)[0],
+                          SYNTHESIS)
+    same = bits_equal(y3, y3_plain)
+    log(f"[parallel] config 3 card decode ({y3.shape[0]} samples x "
+        f"{y3.shape[1]}, {t_dec3:.2f} s host clock, first run) == the card "
+        f"decode through the plain versions of K9 and K10, bitwise: {same}")
+    check(same, "config 3's card decode differs from its plain decode")
+    del y3, y3_plain
     clips = corpus._synth_corpus(64, 10.0)
 
     caps = {}
@@ -1980,7 +2231,8 @@ def phase_parallel(dev, corpus_streams, err):
     enc_launch = read_counts()
     log(f"[parallel] (a) launches in the sharded encodes: {enc_launch}")
     for name, n in enc_launch.items():
-        check(n > 0, f"the sharded encodes launched no {name}")
+        check((n > 0) != (name in SYNTHESIS),
+              f"the sharded encodes launched {name} {n} times")
 
     # (b) sharded decode
     zero_counts()
@@ -1996,9 +2248,15 @@ def phase_parallel(dev, corpus_streams, err):
         check(same, f"sharded decode ({n_data}, {n_seq}) differs")
     dec_launch = read_counts()
     log(f"[parallel] (b) launches in the sharded decodes: {dec_launch} "
-        f"(a decode runs K1 only)")
-    check(dec_launch["fft_stages"] > 0,
-          "the sharded decodes launched no fft_stages")
+        f"(a decode runs K9, K1 and K10 only)")
+    for name in KERNELS:
+        used = name in SYNTHESIS or name == "fft_stages"
+        check((dec_launch[name] > 0) == used,
+              f"the sharded decodes launched {name} {dec_launch[name]} "
+              f"times")
+    check(dec_launch["synth_pre"] == dec_launch["synth_post"]
+          == dec_launch["fft_stages"] // 2,
+          "the sharded decodes did not run K9, K1 x 2, K10 a shard")
 
     # the kernels on this path's own inputs (shard chunks of 648 and 7032
     # frame rows, stream orders from f0 > 0, 48 kHz at 192 kbps)
@@ -2165,7 +2423,8 @@ def phase_bench(smi):
     fft_stages, quant_cost = kernels[:2]
     plains = ((fft_stages, "fft_plain"), (quant_cost, "payload_bits_plain"),
               (device_pack, "pack_stream_plain"), (rd, "rd_loop_plain"),
-              *((m, f"{n}_plain") for m, n in zip(kernels[4:], ANALYSIS)))
+              *((m, f"{n}_plain") for m, n in zip(kernels[4:8], ANALYSIS)),
+              *((m, f"{n}_plain") for m, n in zip(kernels[8:], SYNTHESIS)))
     plain_calls = {attr: 0 for _, attr in plains}
     saved = [getattr(mod, attr) for mod, attr in plains]
     for (mod, attr), orig in zip(plains, saved):
@@ -2191,7 +2450,7 @@ def phase_bench(smi):
     launches = {k.__name__.rsplit(".", 1)[-1]: k.launches for k in kernels}
     lines = out.getvalue().strip().splitlines()
     log(f"[bench] bench.main(['--full', '--kernels']): exit {rc} in "
-        f"{dt:.1f} s; K1-K8 launches {launches}; plain versions called "
+        f"{dt:.1f} s; K1-K10 launches {launches}; plain versions called "
         f"{plain_calls}; stdout {lines}")
     check(rc == 0 and len(lines) == 1, "the bench did not print one line")
     res = json.loads(lines[0])
@@ -2206,6 +2465,16 @@ def phase_bench(smi):
         check(n > 0, f"the bench launched no {name}")
     check(not any(plain_calls.values()),
           f"a plain version ran on the bench's path: {plain_calls}")
+    dec = [line for line in err.getvalue().splitlines()
+           if line.startswith("device-resident decode launches: ")]
+    check(len(dec) == 1, "the bench logged no device-resident decode "
+          "launches")
+    got = json.loads(dec[0].split(": ", 1)[1])
+    slabs = got.pop("slabs")
+    want = {**{k: 0 for k in KERNELS}, "fft_stages": 2 * slabs,
+            **{k: slabs for k in SYNTHESIS}}
+    check(got == want, f"the bench's device-resident decode launched {got}, "
+          f"not K9, K1 x 2 and K10 a slab")
     return launches, res
 
 
@@ -2273,6 +2542,17 @@ def main() -> int:
                    "mrcaudiocodec_tpu/models/encoder.py:65-120 (jit A; "
                    "ops/psycho.py:186 analyze after the FFTs, "
                    "native/xpsy_ffi.cpp modes 0-2; no pallas_call)"),
+        "synth_pre": ("cuda", "mrcaudiocodec_tpu_torch/csrc/synth_pre.cu",
+                      "mrcaudiocodec_tpu/models/decoder.py:64-102 (the "
+                      "decoder jit: e_bin :85, dequantize :90; "
+                      "native/xpsy_ffi.cpp mode 5 and native/xmath_ffi.cpp "
+                      "mode 2 before the FFT; no pallas_call)"),
+        "synth_post": ("cuda", "mrcaudiocodec_tpu_torch/csrc/synth_post.cu",
+                       "mrcaudiocodec_tpu/models/decoder.py:64-102 (the "
+                       "decoder jit :91-101: dsp.synthesize, "
+                       "ops/dsp.py:274-291, native/xmath_ffi.cpp mode 2 "
+                       "after the FFT, overlap-add, int16; native/"
+                       "xpsy_ffi.cpp mode 5 feeds it; no pallas_call)"),
     }
     kernels = []
     for name, (route, source, replaces) in meta.items():

@@ -1,4 +1,5 @@
-"""The encoder's analysis stage beside another version's, in turns.
+"""The encoder's analysis and the decoder's synthesis beside another
+version's, in turns.
 
     python -m mrcaudiocodec_tpu_torch.analyze_turns BASE_DIR
 
@@ -8,11 +9,16 @@ archive <commit> mrcaudiocodec_tpu_torch` and renamed); its kernels build
 from its own csrc/ into its own build/. Both versions must give the same
 outputs: `encoder._analyze_chunk` on the 30 s stereo 44.1 kHz 128 kbps
 int16 clip's chunk (2586 frame rows) and on the first chunk of the 64 x
-10 s corpus batch (8192 frame rows), the clip's stream and the batch's
+10 s corpus batch (8192 frame rows), `decoder._synth_chunk` (int16 PCM)
+on each of the two chunks of the clip's decode (2048 and 538 frame rows,
+its records staged on the card), the clip's stream and the batch's
 streams. Then, in turns (base, this, this, base, ROUNDS times):
   * each chunk's `_analyze_chunk`: host-clock ms a call (CALLS calls
     closed by a synchronize), device ms a call (the profiler's kernel
     times), device events a call, and K5's and K8's device ms in it;
+  * each decode chunk's `_synth_chunk`: best wall ms of CALLS calls, each
+    closed by a synchronize, device ms and device events a call, and K9's
+    and K10's device ms in it;
   * the 30 s encode (`codec.encode`): wall ms (best of CALLS), and one
     profiled encode's device ms and device events;
   * the 64 x 10 s batch (`corpus.encode_batch`): wall ms, and one profiled
@@ -33,10 +39,11 @@ import time
 
 import numpy as np
 
+from .profiling import KERNEL_NAMES
+
 ROUNDS = 3
 CALLS = 10
-KERNEL_NAMES = ("fft_stages", "quant_cost", "record_pack", "rd_loop",
-                "transients", "analysis_pre", "mdct_post", "psycho")
+TRACKED = ("transients", "psycho", "synth_pre", "synth_post")
 
 
 def _sync():
@@ -95,8 +102,13 @@ def wall_ms(fn, calls: int, best: bool):
 
 
 def _same(a, b):
+    """Bitwise equality of two tuples of tensors (f32 as int32 bits)."""
     import torch
-    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    def bits(t):
+        t = t.contiguous()
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+    return all(torch.equal(bits(x), bits(y)) for x, y in zip(a, b))
 
 
 def main(argv=None) -> int:
@@ -117,7 +129,8 @@ def main(argv=None) -> int:
     bname = os.path.basename(base_dir)
     pkgs = {"base": bname, "this": __package__}
     mods = {k: {m: importlib.import_module(f"{p}.{m}")
-                for m in ("models.encoder", "models.codec", "corpus")}
+                for m in ("models.encoder", "models.decoder",
+                          "models.codec", "corpus")}
             for k, p in pkgs.items()}
     own = {}
     for k, p in pkgs.items():
@@ -143,6 +156,9 @@ def main(argv=None) -> int:
                                                            "cuda"), cfg)
     cfgs = {k: importlib.import_module(f"{p}.config").CodecConfig(
         fs=44100, channels=2, bitrate=128000) for k, p in pkgs.items()}
+    bs = mods["this"]["models.codec"].encode(xi, cfg, device="cuda")
+    slabs = [tuple(torch.from_numpy(a).cuda() for a in slab)
+             for slab in mods["this"]["models.decoder"].record_slabs(bs)]
 
     def runs(k):
         e, c, co = (mods[k][m] for m in ("models.encoder", "models.codec",
@@ -150,6 +166,10 @@ def main(argv=None) -> int:
         out = {f"analyze {n}": (lambda e=e, a=a: e._analyze_chunk(a,
                                                                   cfgs[k]))
                for n, (a, _) in chunks.items()}
+        d = mods[k]["models.decoder"]
+        for sl in slabs:
+            out[f"synth {sl[2].numel()} rows"] = (
+                lambda d=d, sl=sl: d._synth_chunk(*sl, 44100, "sine", True))
         out["encode 30 s"] = lambda c=c: c.encode(xi, cfgs[k],
                                                   device="cuda")
         out["batch 64 x 10 s"] = lambda co=co: co.encode_batch(
@@ -160,7 +180,8 @@ def main(argv=None) -> int:
     for name in fns["this"]:
         got = {k: fns[k][name]() for k in pkgs}
         _sync()
-        same = (got["base"] == got["this"] if not name.startswith("analyze")
+        same = (got["base"] == got["this"]
+                if not name.startswith(("analyze", "synth"))
                 else _same(got["base"], got["this"]))
         log(f"[analyze turns] {name}: base == this: {same}")
         if not same:
@@ -170,7 +191,7 @@ def main(argv=None) -> int:
            "runs": {}}
     for name in fns["this"]:
         rec = {k: {"wall_ms": [], "device_ms": [], "events": [],
-                   "kernel_ms": [], "transients_ms": [], "psycho_ms": []}
+                   "kernel_ms": [], **{f"{n}_ms": [] for n in TRACKED}}
                for k in pkgs}
         for _ in range(ROUNDS):
             for k in ("base", "this", "this", "base"):
@@ -182,7 +203,7 @@ def main(argv=None) -> int:
                 rec[k]["device_ms"].append(ms)
                 rec[k]["events"].append(ev)
                 rec[k]["kernel_ms"].append(kern)
-                for n in ("transients", "psycho"):
+                for n in TRACKED:
                     rec[k][f"{n}_ms"].append(each.get(n))
         for k in pkgs:
             r = rec[k]
@@ -193,7 +214,7 @@ def main(argv=None) -> int:
             r["outside_kernels_ms"] = float(np.median(
                 [d - q for d, q in zip(r["device_ms"], r["kernel_ms"])]))
             r["kernels"] = own[k]
-            for n in ("transients", "psycho"):
+            for n in TRACKED:
                 got = [v for v in r[f"{n}_ms"] if v is not None]
                 r[f"median_{n}_ms"] = (float(np.median(got)) if got
                                        else None)
@@ -206,7 +227,9 @@ def main(argv=None) -> int:
             f"outside the {len(own[k])} kernels "
             f"{rec[k]['outside_kernels_ms']:.3f} ms, K5 "
             f"{rec[k]['median_transients_ms']} ms, K8 "
-            f"{rec[k]['median_psycho_ms']} ms" for k in pkgs))
+            f"{rec[k]['median_psycho_ms']} ms, K9 "
+            f"{rec[k]['median_synth_pre_ms']} ms, K10 "
+            f"{rec[k]['median_synth_post_ms']} ms" for k in pkgs))
     print(json.dumps(res))
     return 0
 

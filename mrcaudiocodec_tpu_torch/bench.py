@@ -27,7 +27,9 @@ device_resident_rtf, stream_matches_spec) and logs on stderr:
   - --full: decode RTF (`decode(bs, pcm_dtype="int16")`, a warm-up and one
     timed run), then the device-resident decode: records parsed and staged
     in slabs of DEC_CHUNK frames before the clock, `decoder._synth_chunk`
-    per slab, a synchronize; best of RESIDENT_TRIALS;
+    per slab (K9, K1 x 2, K10), a synchronize; best of RESIDENT_TRIALS;
+    on the card one more run's launch counts are logged as JSON
+    ("device-resident decode launches: ...");
   - --kernels (card only; run last, so that no profiler session precedes
     the timings above): on the --seconds clip's first chunk, staged on
     the card, the wall and profiler device ms per call of the encoder's
@@ -325,6 +327,14 @@ def main(argv=None) -> int:
         log(f"device-resident decode (records staged, {len(slabs)} slabs of "
             f"<= {decoder.DEC_CHUNK} frames): {ddt * 1e3:.2f} ms -> RTF "
             f"{args.seconds / ddt:.1f}x")
+        if dev != "cpu":
+            mods = profiling.kernel_modules()
+            for m in mods:
+                m.launches = 0
+            run_dec()
+            log("device-resident decode launches: " + json.dumps(
+                {"slabs": len(slabs), **{n: m.launches for n, m in zip(
+                    profiling.KERNEL_NAMES, mods)}}))
     if args.kernels:
         # last: the profiler's sessions stay out of the timings above
         t0 = time.perf_counter()

@@ -1,5 +1,6 @@
 // Device math shared by the analysis kernels K5 (transients.cu) and K8
-// (psycho.cu): the normative xlog2 / xexp2 of xpsy.py, each a copy of the
+// (psycho.cu) and by the decoder's K9 (synth_pre.cu, the |q|^(4/3) chain
+// beyond QMAX): the normative xlog2 / xexp2 of xpsy.py, each a copy of the
 // op DAG of mrcaudiocodec_tpu_torch/xpsy.py (xlog2 :72, xexp2 :112).
 //
 // Every f32 op is a single correctly-rounded __f*_rn op, in the order of

@@ -1,11 +1,12 @@
 """Decoder pipeline: native host parse + device synthesis/overlap-add.
 
 The MRC1 per-frame length prefixes let the C++ runtime parse all frame
-records in parallel; the device then dequantizes, runs the IMDCT (FFT
-stages in the CUDA kernel K1) and overlap-adds chunks of frames. Chunks
-carry nothing across: each returns its first hop without the previous
-chunk's flush half, and the host rebuilds each seam hop with one f32 add,
-bitwise equal to a carry chain.
+records in parallel; the card then synthesizes chunks of frames in four
+launches: K9 (dequantize, the IMDCT's pre-twiddles), K1 twice (the long
+and the short FFTs) and K10 (post-twiddles, unfold, window, overlap-add,
+int16). Chunks carry nothing across: each returns its first hop without
+the previous chunk's flush half, and the host rebuilds each seam hop with
+one f32 add, bitwise equal to a carry chain.
 
 Entry point: `decode(data, device="cuda", pcm_dtype="float32")`. It runs
 on the card unless the caller passes device="cpu"; without CUDA it raises.
@@ -18,7 +19,7 @@ import torch
 from .. import config as C
 from .. import native
 from ..bitstream import frame_byte_offsets, read_header
-from ..ops import dsp, entropy, quantize
+from ..ops.kernels import fft_stages, synth_post, synth_pre
 from .encoder import device_for
 
 DEC_CHUNK = 1024                    # frames per device chunk
@@ -36,39 +37,19 @@ def parse_records(data: bytes):
     return q, e_band, bt
 
 
-def synth_frames(q, e_band, bt, fs: int, window: str):
-    """[R, s, 1024] q + [R, s, NB] exponents + [R, s] types (device) ->
-    (first [R, s, HOP], second [R, s, HOP]) f32: each frame's synthesis,
-    split into the halves that overlap the previous and the next frame."""
-    r, f = bt.shape
-    btf = bt.reshape(-1).to(torch.int32)
-    tb = entropy.dev_tables(fs, str(q.device))
-    ef = e_band.reshape(r * f, -1).to(torch.int32)
-    # band -> bin exponent: an integer gather of each bin's band
-    e_bin = torch.gather(ef, 1, tb["bin_band"][btf.long()].long())
-    xhat = quantize.dequantize(q.reshape(r * f, -1).to(torch.int32), e_bin)
-    frames = dsp.synthesize(xhat, btf, window).reshape(r, f, C.LONG_SIZE)
-    return frames[:, :, :C.HOP], frames[:, :, C.HOP:]
-
-
-def overlap_add(first, second, prev):
-    """Each hop = its frame's first half + the previous frame's second
-    half (one f32 add); `prev` [R, HOP] is the second half before frame 0
-    (zeros at a clip's start) -> pcm [R, s*HOP] f32."""
-    r, f, _ = first.shape
-    prev = torch.cat([prev[:, None], second[:, :-1]], dim=1)
-    return (first + prev).reshape(r, f * C.HOP)
-
-
 def _synth_chunk(q, e_band, bt, fs: int, window: str, pcm16: bool):
-    """[R, s, 1024] q + [R, s, NB] exponents + [R, s] types (device) ->
-    (pcm [R, s*HOP], first [R, HOP] f32, tail [R, HOP] f32)."""
-    first, second = synth_frames(q, e_band, bt, fs, window)
-    pcm = overlap_add(first, second, torch.zeros_like(second[:, 0]))
-    if pcm16:
-        pcm = torch.clamp(torch.round(pcm * 32767.0), -32768, 32767).to(
-            torch.int16)
-    return pcm, first[:, 0], second[:, -1]
+    """[R, s, 1024] int16 q + [R, s, NB] int16 exponents + [R, s] int8
+    types -> (pcm [R, s*HOP], first [R, HOP] f32, tail [R, HOP] f32): K9
+    (dequantize, the DCT-IV pre-twiddles), K1 on the long and the short
+    layout, K10 (post-twiddles, unfold, window, short overlap, select,
+    overlap-add, int16) on the card; each kernel's plain version for CPU
+    tensors. pcm's first hop has +0 for the previous chunk's second half;
+    `first` is frame 0's first half as it is, `tail` the last frame's
+    second half."""
+    pre = synth_pre.synth_pre(q, e_band, bt, fs)
+    return synth_post.synth_post(*fft_stages.fft(*pre[:2]),
+                                 *fft_stages.fft(*pre[2:]), bt, window,
+                                 pcm16)
 
 
 def record_slabs(data: bytes):
@@ -86,6 +67,23 @@ def record_slabs(data: bytes):
                   for a in (qc, ec, bc)) for f0 in range(0, nf, DEC_CHUNK)]
 
 
+def join_chunks(outs, n_samples: int, pcm16: bool):
+    """The chunks' downloaded (pcm, first, tail) numpy arrays -> the clip's
+    PCM [n_samples, channels]: each seam hop is the chunk's first plus the
+    chunk before's tail (one f32 add, then the int16 rounding for pcm16),
+    the priming hop dropped."""
+    pcms = [o[0] for o in outs]
+    for c in range(1, len(outs)):
+        seam = outs[c][1] + outs[c - 1][2]     # single f32 add (exact seam)
+        if pcm16:
+            pcms[c][:, :C.HOP] = np.clip(np.round(seam * 32767.0),
+                                         -32768, 32767).astype(np.int16)
+        else:
+            pcms[c][:, :C.HOP] = seam
+    flat = np.concatenate(pcms, axis=1)
+    return np.ascontiguousarray(flat[:, C.HOP:C.HOP + n_samples].T)
+
+
 def decode(data: bytes, device="cuda", pcm_dtype="float32"):
     """MRC1 bytes -> (pcm [n, channels] float32 or int16, cfg)."""
     if pcm_dtype not in ("float32", "int16"):
@@ -97,15 +95,5 @@ def decode(data: bytes, device="cuda", pcm_dtype="float32"):
     outs = [_synth_chunk(*(torch.from_numpy(a).to(dev) for a in slab),
                          cfg.fs, cfg.window, pcm16)
             for slab in record_slabs(data)]
-    pcms = [o[0].cpu().numpy() for o in outs]
-    firsts = [o[1].cpu().numpy() for o in outs]
-    tails = [o[2].cpu().numpy() for o in outs]
-    for c in range(1, len(pcms)):
-        seam = firsts[c] + tails[c - 1]        # single f32 add (exact seam)
-        if pcm16:
-            pcms[c][:, :C.HOP] = np.clip(np.round(seam * 32767.0),
-                                         -32768, 32767).astype(np.int16)
-        else:
-            pcms[c][:, :C.HOP] = seam
-    flat = np.concatenate(pcms, axis=1)
-    return np.ascontiguousarray(flat[:, C.HOP:C.HOP + n_samples].T), cfg
+    return join_chunks([[t.cpu().numpy() for t in o] for o in outs],
+                       n_samples, pcm16), cfg

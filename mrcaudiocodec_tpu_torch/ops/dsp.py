@@ -5,7 +5,9 @@ and the result is selected by block type. The MDCT/IMDCT chains are the
 pinned xmath sequence, with the FFT stages in the CUDA kernel K1
 (ops/kernels/fft_stages.py) on the card and its plain version on the CPU;
 on the card the MDCT's glue runs in K6 and K7 (ops/kernels/analysis_pre.py,
-mdct_post.py).
+mdct_post.py), and the decoder's synthesis in K9 and K10
+(ops/kernels/synth_pre.py, synth_post.py; `synth_windowed` is part of
+K10's plain version).
 Every float reduction is a pinned tree, so no value depends on the batch
 shape (the JAX package needed ops/blocking.py for that; the port does not).
 """
@@ -79,12 +81,25 @@ def analyze(frames, bt, window: str = "sine"):
 
 
 def synthesize(coeffs, bt, window: str = "sine"):
-    """Batched IMDCT + window: [F, 1024] -> [F, 2048] frames for OLA."""
-    lw, sw = _windows(window, str(coeffs.device))
+    """Batched IMDCT + window: [F, 1024] -> [F, 2048] frames for OLA: the
+    DCT-IV's pre-twiddle, K1's FFT (its plain version on the CPU), then
+    synth_windowed."""
+    from .kernels import fft_stages
     x = coeffs.to(torch.float32)
-    vl = xmath.imdct_windowed_fast(x, lw[bt.long()])
     us = x.reshape(x.shape[0], C.N_SHORT, C.SHORT_COEFFS)
-    subs = xmath.imdct_windowed_fast(us, sw)
+    return synth_windowed(*fft_stages.fft(*xmath.dct_iv_pre(x)),
+                          *fft_stages.fft(*xmath.dct_iv_pre(us)), bt, window)
+
+
+def synth_windowed(l_re, l_im, s_re, s_im, bt, window: str = "sine"):
+    """The IMDCT after its FFTs: (l_re, l_im) [F, 512] of the long DCT-IV
+    and (s_re, s_im) [F, 8, 64] of the short ones, bt [F] -> [F, 2048]:
+    post-twiddle, unfold and window of both families, the short
+    sub-blocks added onto zeros in group order, the select by bt."""
+    lw, sw = _windows(window, str(l_re.device))
+    bt = bt.long()
+    vl = xmath.unfold(xmath.dct_iv_post(l_re, l_im)) * lw[bt]
+    subs = xmath.unfold(xmath.dct_iv_post(s_re, s_im)) * sw
     off = C.SHORT_OFFSET
     vs = torch.zeros_like(vl)
     for g in range(C.N_SHORT):

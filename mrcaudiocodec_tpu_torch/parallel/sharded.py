@@ -19,8 +19,9 @@ Port of mrcaudiocodec_tpu/parallel/sharded.py:
 * Records: each shard decides its frames (K2) and packs them in stream
   order (K3); a clip's stream is its header and the join, in seq order,
   of its shards' body slices, gathered to the seq group's first shard.
-* Decode: each shard synthesizes its frames (K1) and takes one halo, the
-  last second half of the shard before it.
+* Decode: each shard synthesizes its frames (decoder._synth_chunk: K9,
+  K1, K10) and takes one halo, the tail (last second half) of the shard
+  before it, which its first hop adds to its frame 0's first half.
 
 Every global quantity comes through an exchange object: `LocalShards`
 runs every shard of the grid in turn in one process on one device (the
@@ -398,11 +399,14 @@ def sharded_decode(data: bytes, grid: Grid, exchange):
     def up(a, r, f):
         return torch.from_numpy(np.ascontiguousarray(a[r, f])).to(dev)
 
-    halves = [decoder.synth_frames(up(qc, r, f), up(ec, r, f), up(bc, r, f),
-                                   cfg.fs, cfg.window) for r, f in blocks]
-    prev, _ = exchange.halo([second[:, -1] for _, second in halves])
-    pcm = [decoder.overlap_add(first, second, p)
-           for (first, second), p in zip(halves, prev)]
+    outs = [decoder._synth_chunk(up(qc, r, f), up(ec, r, f), up(bc, r, f),
+                                 cfg.fs, cfg.window, False)
+            for r, f in blocks]
+    prev, _ = exchange.halo([tail for _, _, tail in outs])
+    pcm = []
+    for (hops, first, _), p in zip(outs, prev):
+        hops[:, :C.HOP] = first + p        # the seam: one f32 add
+        pcm.append(hops)
     full = np.zeros((rows, nf_pad * C.HOP), np.float32)
     for rank, piece in enumerate(exchange.world_gather(pcm)[0]):
         d, s = grid.coords(rank)

@@ -3,7 +3,8 @@
     card_line()                    the card's name and power limit
     device_ms(fn, ...)             profiler device ms per call of fn()
     kernel_device_totals(prof, names)
-    capture_inputs(run, per_key)   K1-K8 inputs recorded at their wrappers
+    kernel_modules()               K1-K10's wrapper modules
+    capture_inputs(run, per_key)   K1-K10 inputs recorded at their wrappers
     kernel_bound(key, args)        bytes, ops and op rate of one launch
     rd_loop_ops(args, kept)        K4's f32 ops, kept magnitudes or not
     psycho_ops(bt, fs, full)       K8's f32 ops on these block types
@@ -29,7 +30,8 @@ F32_OPS_PER_S = 67e12 / 2
 INT32_OPS_PER_S = F32_OPS_PER_S / 2
 
 KERNEL_NAMES = ("fft_stages", "quant_cost", "record_pack", "rd_loop",
-                "transients", "analysis_pre", "mdct_post", "psycho")
+                "transients", "analysis_pre", "mdct_post", "psycho",
+                "synth_pre", "synth_post")
 # f32 ops a bin (K2's pricing): quantize (two xsqrt of 24 ops, the step
 # and |x| * step, a * sqrt(a), add, floor, min); dequantize by its chain
 # (max, xlog2's 26, the 4/3 multiply, xexp2's 20, the zero select, the
@@ -49,6 +51,20 @@ XLOG2_OPS = 29
 XEXP2_OPS = 19
 TRANSIENT_OPS_PER_SAMPLE = 3
 TRANSIENT_OPS_PER_FRAME = 4 * 16 + 15 * 5
+# the synthesis kernels' f32 ops a frame: K9 dequantizes a bin in 3 (the
+# step's product, |q|^(4/3) * step, the sign) and pre-twiddles each of the
+# two families' 512 complex values in 6; a bin beyond QMAX adds the chain
+# (xlog2, the 4/3 product, xexp2). K10: a long frame's 1024 coefficients
+# (post-twiddle 3 or 4 ops and the scale), 1536 unfold negations and 2048
+# window products; a SHORT frame the same on its 8 sub-blocks plus 2048
+# adds of the overlap; the hop add a sample, and for int16 the product,
+# the rounding and the two clamps
+SYNTH_PRE_OPS_PER_FRAME = 1024 * 3 + 2 * 512 * 6
+SYNTH_PRE_OPS_OVER_QMAX = XLOG2_OPS + 1 + XEXP2_OPS
+SYNTH_POST_OPS_LONG = 512 * 3 + 512 * 4 + 1024 + 1536 + 2048
+SYNTH_POST_OPS_SHORT = 8 * (64 * 3 + 64 * 4 + 128 + 192 + 256) + 2048
+SYNTH_POST_OPS_HOP = 1024
+SYNTH_POST_OPS_PCM16 = 1024 * 4
 
 
 def log(*a):
@@ -120,17 +136,26 @@ def kernel_device_totals(prof, names):
     return out
 
 
+def kernel_modules():
+    """The kernel wrappers' modules in KERNEL_NAMES order (K1-K10)."""
+    import importlib
+    return tuple(importlib.import_module(f"{__package__}.ops.kernels.{n}")
+                 for n in KERNEL_NAMES)
+
+
 def capture_inputs(run, per_key: int = 1):
-    """Run run() with K1-K8's wrappers recording a copy of their arguments
+    """Run run() with K1-K10's wrappers recording a copy of their arguments
     -> {key: args} of the first `per_key` calls of each key: K1
     ("fft_stages", shape), K2 ("quant_cost", (rows, G)), K3 ("record_pack",
     (records in the stream order,)), K4 ("rd_loop", (rows,)), K5
     ("transients", (rows, frames)), K6-K8 ("analysis_pre" / "mdct_post" /
-    "psycho", (frame rows,)), in call order; the i-th call (i > 0) of a
-    key is stored under key + (i,)."""
+    "psycho", (frame rows,)), K9 and K10 ("synth_pre" / "synth_post",
+    (frame rows,)), in call order; the i-th call (i > 0) of a key is
+    stored under key + (i,)."""
     import torch
     from .ops.kernels import (analysis_pre, fft_stages, mdct_post, psycho,
-                              quant_cost, rd_loop, record_pack, transients)
+                              quant_cost, rd_loop, record_pack, synth_post,
+                              synth_pre, transients)
     seen, calls = {}, {}
     hooks = ((fft_stages, "fft_kernel",
               lambda a: ("fft_stages", tuple(a[0].shape))),
@@ -148,7 +173,11 @@ def capture_inputs(run, per_key: int = 1):
              (mdct_post, "mdct_post_kernel",
               lambda a: ("mdct_post", (a[4].shape[0],))),
              (psycho, "psycho_kernel",
-              lambda a: ("psycho", (a[5].shape[0],))))
+              lambda a: ("psycho", (a[5].shape[0],))),
+             (synth_pre, "synth_pre_kernel",
+              lambda a: ("synth_pre", (a[2].numel(),))),
+             (synth_post, "synth_post_kernel",
+              lambda a: ("synth_post", (a[4].numel(),))))
     saved = []
     for mod, attr, key_of in hooks:
         orig = getattr(mod, attr)
@@ -196,6 +225,8 @@ def kernel_bound(key, args):
                 + (C.QMAX + 1) * 4, rd_loop_ops(args), F32_OPS_PER_S)
     if key[0] in ("transients", "analysis_pre", "mdct_post", "psycho"):
         return analysis_bound(key[0], args)
+    if key[0] in ("synth_pre", "synth_post"):
+        return synthesis_bound(key[0], args)
     # K3: the packed records' q, amp, cb, gain, bt and their order entries
     # in; the compact body and nbytes out. Integer work these records need:
     # a shift and an OR per bit-carrying slot
@@ -252,6 +283,36 @@ def analysis_bound(name, args):
                 for b in xpsy.kernel_blobs(fs, lb))
     return (nf * (8192 + 4096 + 4 + 8 * nb + 4) + blobs,
             psycho_ops(bt, fs, full), F32_OPS_PER_S)
+
+
+def synthesis_bound(name, args):
+    """(bytes, ops, ops per s) of one launch of K9 or K10 on these inputs:
+    K9 reads q, the exponents and the block types once and writes K1's
+    four inputs (8 KB a frame); K10 reads the transform each frame's block
+    type selects (4 KB a frame) and the block types and writes the PCM,
+    first and tail; both read their tables once. Ops as counted above,
+    K9's chain for each bin of this run's q beyond QMAX."""
+    import torch
+    from . import config as C
+    dct = (2049 + 257) * 4
+    if name == "synth_pre":
+        q, e_band, bt = args[0], args[1], args[2]
+        nf = bt.numel()
+        over = int((q.to(torch.int32).abs() > C.QMAX).sum())
+        tables = 5 * 1024 * 4 + (C.QMAX + 1) * 4 + dct + 4 * 4
+        return (q.numel() * 2 + e_band.numel() * 2 + nf + nf * 8192
+                + tables, nf * SYNTH_PRE_OPS_PER_FRAME
+                + over * SYNTH_PRE_OPS_OVER_QMAX, F32_OPS_PER_S)
+    bt, pcm16 = args[4], args[6]
+    r, nf = bt.shape[0], bt.numel()
+    n_short = int((bt == C.SHORT).sum())
+    out = nf * C.HOP * (2 if pcm16 else 4) + 2 * r * C.HOP * 4
+    ops = ((nf - n_short) * SYNTH_POST_OPS_LONG
+           + n_short * SYNTH_POST_OPS_SHORT
+           + nf * (SYNTH_POST_OPS_HOP + (SYNTH_POST_OPS_PCM16 if pcm16
+                                         else 0)))
+    return (nf * 4096 + nf + out + (5 * 2048 + 256) * 4 + dct, ops,
+            F32_OPS_PER_S)
 
 
 def psycho_ops(bt, fs: int, full: bool) -> int:

@@ -22,7 +22,13 @@ to the eager chain and the JAX package's jit A in
 tests/test_torch_analysis.py, and here (on a card) each kernel to its
 plain version at all three rates, int16 and float32 rows, both windows,
 window switching and full psycho on and off, silent and transient-dense
-chunks.
+chunks. K9 and K10 (synth_pre, synth_post), the decoder's synthesis
+around K1, have no Pallas counterpart either; their plain versions are
+held to the JAX package's decoder jit in tests/test_torch_synthesis.py,
+and here (on a card) each kernel to its plain version at 1, 31, 538 and
+2048 frame rows on music, silent, all-SHORT and edge records (q over the
+int16 range, exponents whose steps wrap to inf and NaN), non-finite
+transforms, bad inputs, and the card decode's launch counts.
 Tests marked `cuda` need a card and skip here; the machine with the card
 has no JAX, so this module imports JAX only inside the tests that compare
 against it, and there the tests run as `MRC_TESTS_KEEP_TPU=1 python -m
@@ -42,7 +48,8 @@ from mrcaudiocodec_tpu_torch.ops import device_pack
 from mrcaudiocodec_tpu_torch.ops.kernels import (analysis_pre, fft_stages,
                                                  mdct_post, psycho,
                                                  quant_cost, rd_loop,
-                                                 record_pack, transients)
+                                                 record_pack, synth_post,
+                                                 synth_pre, transients)
 
 torch.set_num_threads(1)
 
@@ -659,10 +666,20 @@ def _analysis_rows(fs, case, frames, seed):
 
 
 def _wrapper_inputs(name, device):
-    """(dispatcher, kernel wrapper, plain version, args) of K1-K8 on small
-    random inputs on `device`."""
+    """(dispatcher, kernel wrapper, plain version, args) of K1-K10 on
+    small random inputs on `device`."""
     rng = np.random.default_rng(7)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    if name in ("synth_pre", "synth_post"):
+        args = tuple(t(a) for a in _synth_records(rng, 2, 3, 44100, "music"))
+        if name == "synth_pre":
+            return (synth_pre.synth_pre, synth_pre.synth_pre_kernel,
+                    synth_pre.synth_pre_plain, args + (44100,))
+        pre = synth_pre.synth_pre_plain(*args, 44100)
+        return (synth_post.synth_post, synth_post.synth_post_kernel,
+                synth_post.synth_post_plain,
+                (*fft_stages.fft_plain(*pre[:2]),
+                 *fft_stages.fft_plain(*pre[2:]), args[2], "sine", True))
     if name in ("transients", "analysis_pre", "mdct_post", "psycho"):
         a = t(_analysis_rows(44100, "transient", 5, 7))
         bt = transients.transients_plain(a, True)
@@ -706,7 +723,8 @@ def _wrapper_inputs(name, device):
 
 @pytest.mark.parametrize("name", ["fft_stages", "quant_cost",
                                   "record_pack", "rd_loop", "transients",
-                                  "analysis_pre", "mdct_post", "psycho"])
+                                  "analysis_pre", "mdct_post", "psycho",
+                                  "synth_pre", "synth_post"])
 def test_wrappers_launch_only_for_cuda_tensors(name, monkeypatch):
     """For CPU tensors the dispatcher takes the plain version and the
     kernel wrapper raises before its launch path (making the tensors'
@@ -714,7 +732,8 @@ def test_wrappers_launch_only_for_cuda_tensors(name, monkeypatch):
     mod = {"fft_stages": fft_stages, "quant_cost": quant_cost,
            "record_pack": record_pack, "rd_loop": rd_loop,
            "transients": transients, "analysis_pre": analysis_pre,
-           "mdct_post": mdct_post, "psycho": psycho}[name]
+           "mdct_post": mdct_post, "psycho": psycho,
+           "synth_pre": synth_pre, "synth_post": synth_post}[name]
 
     def reached(*a, **k):
         raise AssertionError("the launch path was reached")
@@ -734,7 +753,8 @@ def test_wrappers_launch_only_for_cuda_tensors(name, monkeypatch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["fft_stages", "quant_cost",
                                   "record_pack", "rd_loop", "transients",
-                                  "analysis_pre", "mdct_post", "psycho"])
+                                  "analysis_pre", "mdct_post", "psycho",
+                                  "synth_pre", "synth_post"])
 def test_wrappers_launch_on_the_tensors_card(name):
     """Tensors on cuda:0 while cuda:1 is current: the kernel runs on the
     tensors' card and equals its plain version (needs two cards)."""
@@ -834,3 +854,180 @@ def test_psycho_kernel_alignment_on_card():
     co1.copy_(co)
     with pytest.raises(ValueError, match="16-byte aligned"):
         psycho.psycho_kernel(*spec[2], *spec[3], co1, bt, fs, True)
+
+
+# ---------------------------------------------------------------------------
+# K9 and K10: the decoder's synthesis
+# ---------------------------------------------------------------------------
+
+
+def _synth_records(rng, rows, s, fs, case):
+    """A chunk's records as the decoder's slabs hold them: q int16 [rows,
+    s, 1024], e_band int16 [rows, s, NB], bt int8 [rows, s]. "music":
+    small q, exponents around the gain bias, every block type; "silent":
+    q zero (signed zeros through the transforms); "short": every frame
+    SHORT; "edge": q over the whole int16 range (-32768 and beyond QMAX,
+    as a corrupt escape gives), exponents over the whole int16 range (the
+    step's bit pattern wraps to huge, infinite and NaN values)."""
+    nb = JT.unified_layout(fs)["nb"]
+    shape = (rows, s, 1024)
+    if case == "edge":
+        q = rng.integers(-32768, 32768, shape)
+        q[..., :8] = [-32768, 32767, 4095, -4095, 4096, -4096, 0, 1]
+        e = rng.integers(-32768, 32768, (rows, s, nb))
+        e[..., :4] = [0, 255, 127, 128]
+    else:
+        q = np.round(rng.standard_normal(shape) * rng.uniform(
+            0, 40, (rows, s, 1)))
+        q[rng.random(shape) < 0.01] *= 200
+        if case == "silent":
+            q[:] = 0
+        e = rng.integers(90, 170, (rows, s, nb))
+    bt = rng.integers(0, 5, (rows, s))
+    if case == "short":
+        bt[:] = 2
+    return (q.astype(np.int16), e.astype(np.int16), bt.astype(np.int8))
+
+
+def _same_bits(got, want, nan_payload=False):
+    """Bitwise equality; with nan_payload a NaN equals any NaN (the CPU
+    and the card make NaNs with other sign and payload bits)."""
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        g, w = g.cpu().contiguous(), w.cpu().contiguous()
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if g.dtype == torch.float32:
+            if nan_payload:
+                assert torch.equal(g.isnan(), w.isnan())
+                g, w = g.nan_to_num(0.0), w.nan_to_num(0.0)
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w)
+
+
+SYNTH_SHAPES = [(1, 1), (1, 31), (2, 269), (2, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["music", "silent", "short", "edge"])
+@pytest.mark.parametrize("shape", SYNTH_SHAPES,
+                         ids=[f"{r}x{s}" for r, s in SYNTH_SHAPES])
+def test_synthesis_kernels_match_plain_on_card(shape, case):
+    """K9 on the records and K10 on K1's outputs of K9's plain outputs,
+    each bitwise equal to its plain version on the card, at 1, 31, 538 and
+    2048 frame rows, all three rates, both windows, f32 and int16 PCM;
+    the whole card _synth_chunk equal to the CPU's (on the edge records,
+    whose steps wrap to inf and NaN, a NaN equals any NaN: the devices
+    make NaNs with other payloads); repeats identical."""
+    _need_card()
+    from mrcaudiocodec_tpu_torch.models import decoder
+    rows, s = shape
+    for fs, window in ((44100, "sine"), (48000, "kbd"), (32000, "sine")):
+        rng = np.random.default_rng(rows * s + fs)
+        recs = _synth_records(rng, rows, s, fs, case)
+        args = tuple(torch.from_numpy(a).cuda() for a in recs)
+        pre = synth_pre.synth_pre_plain(*args, fs)
+        for _ in range(2):
+            _same_bits(synth_pre.synth_pre_kernel(*args, fs), pre)
+        spec = (*fft_stages.fft_kernel(*pre[:2]),
+                *fft_stages.fft_kernel(*pre[2:]))
+        for pcm16 in (False, True):
+            want = synth_post.synth_post_plain(*spec, args[2], window, pcm16)
+            for _ in range(2):
+                _same_bits(synth_post.synth_post_kernel(
+                    *spec, args[2], window, pcm16), want)
+            cpu = [torch.from_numpy(a) for a in recs]
+            _same_bits(decoder._synth_chunk(*args, fs, window, pcm16),
+                       decoder._synth_chunk(*cpu, fs, window, pcm16),
+                       nan_payload=case == "edge")
+
+
+@pytest.mark.cuda
+def test_synth_post_kernel_nonfinite_on_card():
+    """K10 on transforms holding inf and NaN (what a corrupt stream's
+    exponents can give): int16 and f32 PCM equal the plain version's on the
+    card, clamp, rounding and the cast of a NaN included."""
+    _need_card()
+    rng = np.random.default_rng(3)
+    rows, s = 2, 40
+    bt = torch.from_numpy(rng.integers(0, 5, (rows, s)).astype(np.int8))
+    planes = []
+    for shape in ((rows * s, 512),) * 2 + ((rows * s, 8, 64),) * 2:
+        a = (rng.standard_normal(shape) * 30).astype(np.float32)
+        flat = a.reshape(-1)
+        pick = rng.random(flat.size)
+        flat[pick < 0.002] = np.inf
+        flat[(pick >= 0.002) & (pick < 0.004)] = -np.inf
+        flat[(pick >= 0.004) & (pick < 0.005)] = np.nan
+        flat[(pick >= 0.005) & (pick < 0.1)] *= 1e4      # beyond the clamp
+        planes.append(torch.from_numpy(a).cuda())
+    bt = bt.cuda()
+    for pcm16 in (True, False):
+        want = synth_post.synth_post_plain(*planes, bt, "sine", pcm16)
+        got = synth_post.synth_post_kernel(*planes, bt, "sine", pcm16)
+        _same_bits(got, want)
+        if pcm16:
+            assert (want[0].cpu() == 32767).any()
+            assert (want[0].cpu() == -32768).any()
+
+
+@pytest.mark.cuda
+def test_synthesis_kernels_reject_bad_inputs_on_card():
+    _need_card()
+    rng = np.random.default_rng(5)
+    q, e, bt = (torch.from_numpy(a).cuda()
+                for a in _synth_records(rng, 2, 5, 44100, "music"))
+    with pytest.raises(ValueError):
+        synth_pre.synth_pre_kernel(q.to(torch.int32), e, bt, 44100)
+    with pytest.raises(ValueError):
+        synth_pre.synth_pre_kernel(q, e[..., :-1].contiguous(), bt, 44100)
+    with pytest.raises(ValueError):
+        synth_pre.synth_pre_kernel(q, e, bt.cpu(), 44100)
+    with pytest.raises(ValueError):
+        synth_pre.synth_pre_kernel(q, e, bt, 32000)    # another band count
+    pre = synth_pre.synth_pre_kernel(q, e, bt, 44100)
+    with pytest.raises(ValueError):
+        synth_post.synth_post_kernel(pre[2], pre[3], pre[0], pre[1], bt,
+                                     "sine", False)        # families swapped
+    spec = (*fft_stages.fft_kernel(*pre[:2]), *fft_stages.fft_kernel(*pre[2:]))
+    with pytest.raises(ValueError):
+        synth_post.synth_post_kernel(*spec, bt.reshape(-1), "sine", False)
+    with pytest.raises(ValueError):
+        synth_post.synth_post_kernel(*spec, bt.to(torch.int32), "sine", True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dec_chunk", [1024, 7])
+def test_decode_launches_synthesis_kernels_on_card(monkeypatch, dec_chunk):
+    """codec.decode on the card runs K9 and K10 once a chunk and K1 twice,
+    no other kernel, and equals the CPU decode bitwise (f32 and int16)."""
+    _need_card()
+    from mrcaudiocodec_tpu_torch.config import CodecConfig
+    from mrcaudiocodec_tpu_torch.models import codec, decoder
+    from mrcaudiocodec_tpu_torch.spec import codec as spec
+    monkeypatch.setattr(decoder, "DEC_CHUNK", dec_chunk)
+    fs = 44100
+    n = int(fs * 0.5)
+    t = np.arange(n) / fs
+    x = (0.4 * np.sin(2 * np.pi * 440 * t)).astype(np.float32)
+    x[n // 4:] = 0.0                       # silence across chunk seams
+    x[n // 8:n // 8 + 64] += 0.5
+    x = np.stack([x, 0.8 * x], 1)
+    bs = spec.encode(x, CodecConfig(fs=fs, channels=2, bitrate=128000))
+    nf = len(decoder.record_slabs(bs))
+    mods = (fft_stages, quant_cost, record_pack, rd_loop, transients,
+            analysis_pre, mdct_post, psycho, synth_pre, synth_post)
+    for pcm_dtype in ("float32", "int16"):
+        torch.cuda.synchronize()
+        for m in mods:
+            m.launches = 0
+        y, _ = codec.decode(bs, device="cuda", pcm_dtype=pcm_dtype)
+        torch.cuda.synchronize()
+        counts = {m.__name__.rsplit(".", 1)[-1]: m.launches for m in mods}
+        assert counts == {**{m.__name__.rsplit(".", 1)[-1]: 0 for m in mods},
+                          "synth_pre": nf, "synth_post": nf,
+                          "fft_stages": 2 * nf}
+        yc, _ = codec.decode(bs, device="cpu", pcm_dtype=pcm_dtype)
+        assert y.dtype == yc.dtype
+        if y.dtype == np.float32:
+            y, yc = y.view(np.int32), yc.view(np.int32)
+        np.testing.assert_array_equal(y, yc)

@@ -226,6 +226,24 @@ def test_sharded_decode_equals_decode(n_data, n_seq):
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
+@pytest.mark.parametrize("n_data,n_seq", [(1, 4), (2, 2)])
+def test_sharded_decode_silence_across_shard_edges(n_data, n_seq):
+    """A stereo clip silent from its fifth frame on, so -0 samples meet at
+    the shard edges: the sharded float32 PCM equals codec.decode's by int32
+    view (each shard's first hop is first + the halo's tail, one f32 add,
+    where a chunk of codec.decode has first + prev too)."""
+    cfg = CodecConfig(fs=44100, channels=2, bitrate=128000)
+    x = _clip(24, 3, channels=2)
+    x[4 * C.HOP:] = 0.0
+    bs = codec.encode(x, cfg, device="cpu")
+    want, _ = codec.decode(bs, device="cpu")
+    assert (want.view(np.int32) == np.int32(-2 ** 31)).sum() > 1000
+    grid = mesh.make_grid(n_data, n_seq)
+    got, _ = sharded.sharded_decode(bs, grid,
+                                    sharded.LocalShards(grid, "cpu"))
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
 def test_exchange_for_another_grid_raises():
     a, b = mesh.make_grid(1, 2), mesh.make_grid(2, 1)
     with pytest.raises(ValueError, match="another grid"):

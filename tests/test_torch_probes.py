@@ -219,6 +219,7 @@ def test_sass_counts_parses_listing():
              "record_pack": lib(0, 0), "rd_loop": lib(0, 0),
              "transients": lib(0, 0), "analysis_pre": lib(0, 0),
              "mdct_post": lib(0, 0), "psycho": lib(0, 0),
+             "synth_pre": lib(0, 0), "synth_post": lib(0, 0),
              "probe_fma_contract": lib(3, 0),
              "probe_quant_g32": lib(24, 20, "_Zop_probe_kernel")}
     assert fma_probe.audit_failures(audit) == []
@@ -233,6 +234,10 @@ def test_sass_counts_parses_listing():
     assert fma_probe.audit_failures({**audit, "transients": lib(1, 0)})
     assert fma_probe.audit_failures(
         {k: v for k, v in audit.items() if k != "analysis_pre"})
+    assert fma_probe.audit_failures({**audit, "synth_post": lib(0, 1)})
+    assert fma_probe.audit_failures({**audit, "synth_pre": lib(1, 0)})
+    assert fma_probe.audit_failures(
+        {k: v for k, v in audit.items() if k != "synth_post"})
     assert fma_probe.audit_failures({**audit, "probe_fma_contract": lib(0, 0)})
     assert fma_probe.audit_failures(
         {**audit, "probe_primitives": lib(0, 1, "_Zp0_kernel")})
