@@ -34,12 +34,14 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      psycho off, an all-silent chunk, a transient-dense chunk (SHORT
      frames) and strided rows, and the whole kernel path of
      encoder._analyze_chunk on the card == the eager chain on the CPU;
-     the decoder's synthesis kernels K9 synth_pre and K10 synth_post (f32
-     and int16 PCM) on every slab of the goldens' streams, a 48 kHz, a
-     32 kHz and a kbd stereo stream, a SHORT-dense stream, a stream silent
-     across its seams at DEC_CHUNK 5 and the crafted escapes beyond QMAX,
-     each stream's card decode == its CPU decode; K9 and K10 also on the
-     30 s decode's own inputs (2048 and 538 frame rows)
+     the decoder's synthesis kernels K9 synth_pre and K10 synth_post on
+     every slab of the goldens' streams, a 48 kHz, a 32 kHz and a kbd
+     stereo stream, a SHORT-dense stream, a stream silent across its
+     seams at DEC_CHUNK 5 and the crafted escapes beyond QMAX, K10 at R =
+     1, 2 and 3 rows, f32 and int16 PCM, with prev null, the previous
+     slab's tail and a tail of +-0, +-inf and NaN (hold_k10), each
+     stream's card decode == its CPU decode; K9 and K10 also on the 30 s
+     decode's own inputs (2048 and 538 frame rows, K10 the same ways)
   4. on those captured inputs, each kernel's time (CUDA events, and the
      profiler's device time per launch) beside its plain version's, one
      PyTorch library call where one exists (torch.fft.fft for K1) and the
@@ -52,8 +54,9 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      (k8_locate: the 30 s chunk's inputs cut to 132 ... 2586 rows, full
      psycho off, a SHORT-dense chunk against as many mostly-long rows, the
      batch's 8192) and K5's (k5_locate: the 30 s chunk's 2 rows, its row 0
-     alone, the batch chunk), each beside its bound; the SASS instruction
-     mix of K1-K10
+     alone, the batch chunk) and K10's (k10_locate: the decode's 2048 and
+     538 rows, f32 and int16, and the 2048 rows cut to 66 ... 2048), each beside
+     its bound; the SASS instruction mix of K1-K10
   5. goldens g1-g6 encoded on the card (records built by K3) against their
      SHA-256 digests; each decoded on the card and on the CPU, PCM bitwise
      equal
@@ -70,9 +73,11 @@ Phases, in order; any failure raises, so the exit code is non-zero:
   8. where the time goes: host-clock ms per encode/decode stage (the pack
      stage as the stream order built and uploaded, device pack, download
      of the compact stream body and assemble, beside the host-pack path,
-     with the bytes each downloads; the decode as parse, upload, synth,
-     download and seam),
-     and the card's busy share
+     with the bytes each downloads; the decode as the native parse, the
+     slabs' transposes and casts, upload, synth (the chunks in order, each
+     K10 adding the tail before it into its slice of one clip buffer) and
+     the one download, already [n, channels]),
+     and the card's busy share (the decode's copies counted: 1 download)
      with the top kernels (torch.profiler), with K1-K10's
      launches and device ms in one encode and one decode; the analysis
      alone (_analyze_chunk on the clip's chunk): its launch count and
@@ -204,6 +209,9 @@ def bits_equal(a, b) -> bool:
 
 
 def max_abs_err(a, b) -> float:
+    """0 where the two are equal bit for bit (NaN and inf included)."""
+    if bits_equal(a, b):
+        return 0.0
     return float((a.double().cpu() - b.double().cpu()).abs().max())
 
 
@@ -410,8 +418,10 @@ def phase_build():
         "shared memory, a block a frame; psycho: dynamic shared memory, two "
         "rows of 1056 words and one of 512 a warp, a warp a frame (below); "
         "mdct_post: none; synth_pre: static shared memory (4 KB, a "
-        "frame's dequantized bins), a block a frame; synth_post: none, a "
-        "block a hop")
+        "frame's dequantized bins), a block a frame; synth_post: static "
+        "shared memory (33 KB: 2 staged frames' coefficients and long "
+        "window halves of 2 rows, the short window), a block a hop of 2 "
+        "rows")
     from mrcaudiocodec_tpu_torch.ops.kernels import psycho, rd_loop
     resident = rd_loop.blocks_per_sm()
     log(f"[build] rd_loop: {resident} blocks (of 128 threads) resident an "
@@ -494,6 +504,17 @@ def phase_kernels(dev):
         for key, args in caps.items():
             if key[0] == "rd_loop":
                 log_rd_corners(f"{where} {key[1]}", args)
+    before = None
+    for key, args in inputs["decode"].items():
+        if key[0] == "synth_post":
+            n = hold_k10(f"decode {key[1]}", args[:4], args[4], args[5],
+                         before, err)
+            log(f"[kernels] synth_post on the decode's own input {key[1]} "
+                f"(prev {'given' if args[7] is not None else 'null'} on "
+                f"the main path): kernel == plain bitwise in {n} "
+                f"comparisons (R = 1, 2, 3, f32 and int16, prev null, the "
+                f"previous chunk's, +-0 / inf / NaN)")
+            before = (args[:4], args[4])
     rd_sets = phase_kernels_rd_loop(dev, inputs, err)
     return err, inputs, rd_sets
 
@@ -830,17 +851,76 @@ def synthesis_cases(dev):
     return out
 
 
+def special_tail(rows, dev):
+    """A previous chunk's tail [rows, 1024] f32 holding +0, -0, +-inf and
+    NaN among ordinary values."""
+    import torch
+    t = (np.random.default_rng(rows).standard_normal((rows, 1024))
+         * 0.3).astype(np.float32)
+    t[:, 0::5] = 0.0
+    t[:, 1::5] = -0.0
+    t[:, 2::17] = np.inf
+    t[:, 3::19] = -np.inf
+    t[:, 4::23] = np.nan
+    return torch.from_numpy(t).to(dev)
+
+
+def k10_rows(spec, bt, rows):
+    """K10's inputs for the rows `rows` (a row may repeat) of a chunk:
+    (K1's four planes, bt) -> the same of len(rows) rows."""
+    import torch
+    r, s = bt.shape
+    sel = torch.tensor(rows, device=bt.device)
+    planes = tuple(p.reshape((r, s) + p.shape[1:])[sel].reshape(
+        (len(rows) * s,) + p.shape[1:]).contiguous() for p in spec)
+    return planes, bt[sel].contiguous()
+
+
+def hold_k10(where, spec, bt, window, prev_chunk, err):
+    """K10 == its plain version on the card, bitwise, on a chunk's K1
+    outputs (spec) and bt at R = 1, 2 and 3 rows (rows 0; 0, 1; 0, 1, 0
+    of the chunk, modulo its rows), f32 and int16 PCM, with prev null, the
+    real previous chunk's tail (prev_chunk: that chunk's (spec, bt), None
+    for a chunk that opens its stream) and a tail holding +-0, +-inf and
+    NaN. err: max |err| by kernel, updated. -> the comparisons made."""
+    from mrcaudiocodec_tpu_torch.ops.kernels import synth_post
+    r = bt.shape[0]
+    n = 0
+    for rr in (1, 2, 3):
+        rows = [i % r for i in range(rr)]
+        planes, b = k10_rows(spec, bt, rows)
+        tails = {"null": None, "+-0, inf, NaN": special_tail(rr, bt.device)}
+        if prev_chunk is not None:
+            pp, pb = k10_rows(*prev_chunk, rows)
+            tails["the previous chunk's"] = synth_post.synth_post_plain(
+                *pp, pb, window, False)[2]
+        for name, tail in tails.items():
+            for pcm16 in (False, True):
+                got, want = outputs("synth_post", synth_post.synth_post_kernel(
+                    *planes, b, window, pcm16, tail),
+                    synth_post.synth_post_plain(*planes, b, window, pcm16,
+                                                tail))
+                ok = all(bits_equal(g, w) for g, w in zip(got, want))
+                err["synth_post"] = max([err["synth_post"]] + [
+                    max_abs_err(g, w) for g, w in zip(got, want)])
+                check(ok, f"synth_post differs from its plain version on "
+                      f"'{where}' at R = {rr}, prev {name}, "
+                      f"{'int16' if pcm16 else 'f32'}")
+                n += 1
+    return n
+
+
 def phase_synthesis(dev, err):
     """K9 and K10 against their plain versions on the card, bitwise, on
-    every slab of synthesis_cases(): K9 on the records, K10 (f32 and
-    int16 PCM) on K1's outputs of K9's plain outputs; then each stream's
-    card decode (f32 and int16, at the case's DEC_CHUNK) == its CPU decode.
-    err: max |err| by kernel, updated."""
+    every slab of synthesis_cases(): K9 on the records, K10 on K1's
+    outputs of K9's plain outputs (hold_k10: R = 1, 2, 3 rows, f32 and
+    int16 PCM, prev null, the previous slab's tail or a tail of +-0, inf
+    and NaN); then each stream's card decode (f32 and int16, at the case's
+    DEC_CHUNK) == its CPU decode. err: max |err| by kernel, updated."""
     import torch
     from mrcaudiocodec_tpu_torch import config as C
     from mrcaudiocodec_tpu_torch.models import codec, decoder
-    from mrcaudiocodec_tpu_torch.ops.kernels import (fft_stages, synth_post,
-                                                     synth_pre)
+    from mrcaudiocodec_tpu_torch.ops.kernels import fft_stages, synth_pre
     for name in SYNTHESIS:
         err.setdefault(name, 0.0)
 
@@ -854,7 +934,7 @@ def phase_synthesis(dev, err):
 
     t0 = time.perf_counter()
     for name, fs, window, slabs, bs, chunk in synthesis_cases(dev):
-        rows = 0
+        rows, held, before = 0, 0, None
         for slab in slabs:
             args = tuple(torch.from_numpy(a).to(dev) for a in slab)
             rows = max(rows, args[2].numel())
@@ -863,11 +943,8 @@ def phase_synthesis(dev, err):
                  pre)
             spec = (*fft_stages.fft_kernel(*pre[:2]),
                     *fft_stages.fft_kernel(*pre[2:]))
-            for pcm16 in (False, True):
-                hold("synth_post", name, synth_post.synth_post_kernel(
-                    *spec, args[2], window, pcm16),
-                    synth_post.synth_post_plain(*spec, args[2], window,
-                                                pcm16))
+            held += hold_k10(name, spec, args[2], window, before, err)
+            before = (spec, args[2])
         n_short = sum(int((s[2] == C.SHORT).sum()) for s in slabs)
         same = "no stream"
         if bs is not None:
@@ -884,8 +961,9 @@ def phase_synthesis(dev, err):
             check(same, f"'{name}': the card decode differs from the CPU's")
         log(f"[synthesis] {name}: {len(slabs)} slabs (up to {rows} frame "
             f"rows, {n_short} SHORT frames; fs {fs}, {window}): K9 and K10 "
-            f"== plain bitwise: True; card decode == CPU decode (f32, "
-            f"int16): {same}")
+            f"== plain bitwise: True (K10 in {held} comparisons: R = 1, 2, "
+            f"3, f32 and int16, prev null, the previous slab's, +-0 / inf "
+            f"/ NaN); card decode == CPU decode (f32, int16): {same}")
     log(f"[synthesis] every case held in {time.perf_counter() - t0:.1f} s")
 
 
@@ -1251,25 +1329,35 @@ def phase_breakdown(dev):
     packed_host = packing.pack_stream(arrays, nf, xi.shape[0], cfg)
     lap("host.pack", t)
     check(packed_host == bs, "the host-packed stream differs")
-    # the stages of decoder.decode (int16 PCM), called one by one
-    _, _, n_samples, _ = bitstream.read_header(bs)
+    # the stages of decoder.decode (int16 PCM), called one by one: the
+    # native parse, the slabs' transposes and casts, the upload, the
+    # synthesis of the chunks in order (each K10 adding the tail before it
+    # and writing its slice of the clip buffer), the one download
+    _, nf_dec, n_samples, _ = bitstream.read_header(bs)
     t = time.perf_counter()
-    slabs = decoder.record_slabs(bs)
+    recs = decoder.parse_records(bs)
     lap("dec.parse", t)
+    t = time.perf_counter()
+    slabs = decoder.slabs(*recs, cfg.channels)
+    lap("dec.slabs", t)
     t = time.perf_counter()
     staged = [tuple(torch.from_numpy(a).to(dev) for a in slab)
               for slab in slabs]
     lap("dec.upload", t)
     t = time.perf_counter()
-    outs = [decoder._synth_chunk(*sl, cfg.fs, cfg.window, True)
-            for sl in staged]
+    clip = torch.empty((nf_dec * C.HOP, cfg.channels), dtype=torch.int16,
+                       device=dev)
+    tails, f0 = [None], 0
+    for sl in staged:
+        s_ = sl[2].shape[1]
+        tails.append(decoder._synth_chunk(
+            *sl, cfg.fs, cfg.window, True, tails[-1],
+            clip[f0 * C.HOP:(f0 + s_) * C.HOP])[2])
+        f0 += s_
     lap("dec.synth", t)
     t = time.perf_counter()
-    outs = [[o.cpu().numpy() for o in out] for out in outs]
+    y = clip[C.HOP:C.HOP + n_samples].cpu().numpy()
     lap("dec.download", t)
-    t = time.perf_counter()
-    y = decoder.join_chunks(outs, n_samples, True)
-    lap("dec.seam", t)
     t = time.perf_counter()
     y_ref, _ = codec.decode(bs, device=dev, pcm_dtype="int16")
     lap("dec.total", t)
@@ -1311,6 +1399,12 @@ def phase_breakdown(dev):
             f"device time {busy:.2f} ms, busy share "
             f"{busy / min(walls):.3f}, {sum(r[2] for r in rows)} device "
             f"events")
+        if name == "decode":
+            copies = {k: c for k, _, c in rows if "Memcpy" in k}
+            down = sum(c for k, c in copies.items() if "DtoH" in k)
+            log(f"[profile] decode: copies {copies}; downloads {down} (the "
+                f"PCM, already [n, channels])")
+            check(down == 1, f"the decode made {down} downloads, not 1")
         for key, ms, count in rows[:8]:
             log(f"[profile] {name}:   {ms:9.3f} ms  x{count:<6} {key[:90]}")
         tot = kernel_device_totals(prof, [f"{k}_kernel" for k in KERNELS])
@@ -1357,9 +1451,9 @@ def phase_breakdown(dev):
 
     # the synthesis of each of the decode's chunks alone, the same way:
     # K9, K1 x 2 and K10 and no other device event
-    for sl in staged:
-        def synth(sl=sl):
-            return decoder._synth_chunk(*sl, cfg.fs, cfg.window, True)
+    for sl, tail in zip(staged, tails):
+        def synth(sl=sl, tail=tail):
+            return decoder._synth_chunk(*sl, cfg.fs, cfg.window, True, tail)
         walls = []
         for _ in range(6):
             torch.cuda.synchronize()
@@ -1380,7 +1474,9 @@ def phase_breakdown(dev):
                  if not any(f"{n}_kernel" in k for n in KERNELS)]
         best = min(walls[1:])
         log(f"[breakdown] _synth_chunk ({sl[2].shape[1]} frames x "
-            f"{sl[2].shape[0]} rows, int16) on the card: {events} device "
+            f"{sl[2].shape[0]} rows, int16, prev "
+            f"{'null' if tail is None else 'given'}) on the card: {events} "
+            f"device "
             f"events (launch count), {dms:.4f} ms device, best wall "
             f"{best:.3f} ms of 5 (ms {[round(w, 3) for w in walls[1:]]}), "
             f"busy share {dms / best:.3f}; kernels (launches, device ms) "
@@ -1616,6 +1712,34 @@ def k5_locate(inputs):
     return out
 
 
+def k10_locate(inputs):
+    """Where K10's time goes (phase 4): the decode's two chunks (2048 and
+    538 frame rows, the second with the first's tail), f32 and int16 PCM,
+    and the 2048-row chunk cut to 33 ... 1024 frames a row (a block a hop
+    and a row pair: a time flat in the blocks is latency, one that grows
+    with them throughput), each beside its bound. -> the logged
+    numbers."""
+    out = {}
+    for key, args in inputs["decode"].items():
+        if key[0] != "synth_post":
+            continue
+        for pcm16 in (False, True):
+            where = f"{key[1][0]} rows, {'int16' if pcm16 else 'f32'}"
+            out[where] = locate_measure("k10", "synth_post", where,
+                                        args[:6] + (pcm16,) + args[7:])
+    args = next(v for k, v in inputs["decode"].items()
+                if k[0] == "synth_post")
+    r, s = args[4].shape
+    for n in (33, 132, 528, s):
+        cut = tuple(p.reshape((r, s) + p.shape[1:])[:, :n].reshape(
+            (r * n,) + p.shape[1:]).contiguous() for p in args[:4])
+        out[f"{r * n} rows, f32"] = locate_measure(
+            "k10", "synth_post", f"the 2048-row chunk's first {n} frames "
+            f"a row ({r * n} rows, {n + 1} blocks), f32",
+            cut + (args[4][:, :n].contiguous(),) + args[5:])
+    return out
+
+
 def phase_times(dev, inputs, rd_sets):
     """Kernel, plain and library times on the main path's own inputs
     (main_path_inputs), beside the card's bound for the same work. The
@@ -1669,6 +1793,7 @@ def phase_times(dev, inputs, rd_sets):
     out["rd_loop"]["locate"] = k4_locate(rd_sets)
     out["psycho"]["locate"] = k8_locate(inputs)
     out["transients"]["locate"] = k5_locate(inputs)
+    out["synth_post"]["locate"] = k10_locate(inputs)
     log_instruction_mix()
     return out
 

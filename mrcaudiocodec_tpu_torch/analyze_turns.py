@@ -11,14 +11,21 @@ outputs: `encoder._analyze_chunk` on the 30 s stereo 44.1 kHz 128 kbps
 int16 clip's chunk (2586 frame rows) and on the first chunk of the 64 x
 10 s corpus batch (8192 frame rows), `decoder._synth_chunk` (int16 PCM)
 on each of the two chunks of the clip's decode (2048 and 538 frame rows,
-its records staged on the card), the clip's stream and the batch's
-streams. Then, in turns (base, this, this, base, ROUNDS times):
+its records staged on the card, both without a previous tail; a base
+whose pcm is [R, n] is compared transposed), the clip's decode
+(`codec.decode`, f32 and int16 PCM [n, channels]), the clip's stream and
+the batch's streams. Then, in turns (base, this, this, base, ROUNDS
+times):
   * each chunk's `_analyze_chunk`: host-clock ms a call (CALLS calls
     closed by a synchronize), device ms a call (the profiler's kernel
     times), device events a call, and K5's and K8's device ms in it;
   * each decode chunk's `_synth_chunk`: best wall ms of CALLS calls, each
     closed by a synchronize, device ms and device events a call, and K9's
     and K10's device ms in it;
+  * the 30 s decode (`codec.decode`, f32 and int16): wall ms of each of
+    CALLS calls, each closed by a synchronize (median and quartiles over
+    every call of every turn beside the best), and one profiled decode's
+    device ms and device events;
   * the 30 s encode (`codec.encode`): wall ms (best of CALLS), and one
     profiled encode's device ms and device events;
   * the 64 x 10 s batch (`corpus.encode_batch`): wall ms, and one profiled
@@ -82,8 +89,9 @@ def profiled(fn, names):
 
 
 def wall_ms(fn, calls: int, best: bool):
-    """Host-clock ms of fn(): the mean over `calls` calls in one synchronized
-    run, or (best) the best of `calls` calls each closed by a synchronize."""
+    """Host-clock ms of fn() -> [the mean over `calls` calls in one
+    synchronized run], or (best) [each of `calls` calls, each closed by a
+    synchronize]."""
     fn()
     _sync()
     if not best:
@@ -91,24 +99,38 @@ def wall_ms(fn, calls: int, best: bool):
         for _ in range(calls):
             fn()
         _sync()
-        return (time.perf_counter() - t0) / calls * 1e3
+        return [(time.perf_counter() - t0) / calls * 1e3]
     out = []
     for _ in range(calls):
         t0 = time.perf_counter()
         fn()
         _sync()
         out.append((time.perf_counter() - t0) * 1e3)
-    return min(out)
+    return out
 
 
 def _same(a, b):
-    """Bitwise equality of two tuples of tensors (f32 as int32 bits)."""
+    """Bitwise equality of two tuples of tensors (f32 as int32 bits); a
+    first member of another shape is compared transposed (a base whose
+    pcm is [R, n])."""
     import torch
 
     def bits(t):
         t = t.contiguous()
         return t.view(torch.int32) if t.dtype == torch.float32 else t
+    if a[0].shape != b[0].shape:
+        a = (a[0].T,) + tuple(a[1:])
     return all(torch.equal(bits(x), bits(y)) for x, y in zip(a, b))
+
+
+def _same_pcm(a, b):
+    """Bitwise equality of two decodes' (pcm, cfg): numpy [n, channels]."""
+    a, b = a[0], b[0]
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == np.float32:
+        a, b = a.view(np.int32), b.view(np.int32)
+    return bool(np.array_equal(a, b))
 
 
 def main(argv=None) -> int:
@@ -170,6 +192,10 @@ def main(argv=None) -> int:
         for sl in slabs:
             out[f"synth {sl[2].numel()} rows"] = (
                 lambda d=d, sl=sl: d._synth_chunk(*sl, 44100, "sine", True))
+        for dtype in ("float32", "int16"):
+            out[f"decode 30 s {dtype}"] = (
+                lambda c=c, dtype=dtype: c.decode(bs, device="cuda",
+                                                  pcm_dtype=dtype))
         out["encode 30 s"] = lambda c=c: c.encode(xi, cfgs[k],
                                                   device="cuda")
         out["batch 64 x 10 s"] = lambda co=co: co.encode_batch(
@@ -180,9 +206,12 @@ def main(argv=None) -> int:
     for name in fns["this"]:
         got = {k: fns[k][name]() for k in pkgs}
         _sync()
-        same = (got["base"] == got["this"]
-                if not name.startswith(("analyze", "synth"))
-                else _same(got["base"], got["this"]))
+        if name.startswith(("analyze", "synth")):
+            same = _same(got["base"], got["this"])
+        elif name.startswith("decode"):
+            same = _same_pcm(got["base"], got["this"])
+        else:
+            same = got["base"] == got["this"]
         log(f"[analyze turns] {name}: base == this: {same}")
         if not same:
             return 1
@@ -190,15 +219,18 @@ def main(argv=None) -> int:
     res = {"card": smi, "base": base_dir, "rounds": ROUNDS, "calls": CALLS,
            "runs": {}}
     for name in fns["this"]:
-        rec = {k: {"wall_ms": [], "device_ms": [], "events": [],
-                   "kernel_ms": [], **{f"{n}_ms": [] for n in TRACKED}}
+        rec = {k: {"wall_ms": [], "call_ms": [], "device_ms": [],
+                   "events": [], "kernel_ms": [],
+                   **{f"{n}_ms": [] for n in TRACKED}}
                for k in pkgs}
         for _ in range(ROUNDS):
             for k in ("base", "this", "this", "base"):
                 fn = fns[k][name]
                 calls = CALLS if not name.startswith("batch") else 3
-                rec[k]["wall_ms"].append(wall_ms(
-                    fn, calls, best=not name.startswith("analyze")))
+                walls = wall_ms(fn, calls,
+                                best=not name.startswith("analyze"))
+                rec[k]["wall_ms"].append(min(walls))
+                rec[k]["call_ms"] += walls
                 ms, ev, kern, each = profiled(fn, own[k])
                 rec[k]["device_ms"].append(ms)
                 rec[k]["events"].append(ev)
@@ -209,6 +241,8 @@ def main(argv=None) -> int:
             r = rec[k]
             r["best_wall_ms"] = min(r["wall_ms"])
             r["median_wall_ms"] = float(np.median(r["wall_ms"]))
+            r["call_quartiles_ms"] = [float(v) for v in np.percentile(
+                r["call_ms"], [25, 50, 75])]
             r["median_device_ms"] = float(np.median(r["device_ms"]))
             r["busy_share"] = r["median_device_ms"] / r["best_wall_ms"]
             r["outside_kernels_ms"] = float(np.median(
@@ -221,7 +255,9 @@ def main(argv=None) -> int:
         res["runs"][name] = rec
         log(f"[analyze turns] {smi}; {name}: " + "; ".join(
             f"{k}: wall ms {[round(w, 3) for w in rec[k]['wall_ms']]} "
-            f"(best {rec[k]['best_wall_ms']:.3f}), device ms median "
+            f"(best {rec[k]['best_wall_ms']:.3f}; every call's quartiles "
+            f"{[round(v, 3) for v in rec[k]['call_quartiles_ms']]}), "
+            f"device ms median "
             f"{rec[k]['median_device_ms']:.3f}, busy "
             f"{rec[k]['busy_share']:.3f}, events {rec[k]['events']}, "
             f"outside the {len(own[k])} kernels "

@@ -27,7 +27,8 @@ device_resident_rtf, stream_matches_spec) and logs on stderr:
   - --full: decode RTF (`decode(bs, pcm_dtype="int16")`, a warm-up and one
     timed run), then the device-resident decode: records parsed and staged
     in slabs of DEC_CHUNK frames before the clock, `decoder._synth_chunk`
-    per slab (K9, K1 x 2, K10), a synchronize; best of RESIDENT_TRIALS;
+    per slab (K9, K1 x 2, K10), each taking the slab before's tail, a
+    synchronize; best of RESIDENT_TRIALS;
     on the card one more run's launch counts are logged as JSON
     ("device-resident decode launches: ...");
   - --kernels (card only; run last, so that no profiler session precedes
@@ -319,8 +320,10 @@ def main(argv=None) -> int:
                  for slab in decoder.record_slabs(bs)]
 
         def run_dec():
+            tail = None
             for q, e, b in slabs:
-                decoder._synth_chunk(q, e, b, dcfg.fs, dcfg.window, True)
+                _, _, tail = decoder._synth_chunk(q, e, b, dcfg.fs,
+                                                  dcfg.window, True, tail)
             _sync(dev)
 
         ddt = _best(run_dec, RESIDENT_TRIALS)

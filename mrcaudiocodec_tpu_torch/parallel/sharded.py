@@ -405,11 +405,11 @@ def sharded_decode(data: bytes, grid: Grid, exchange):
     prev, _ = exchange.halo([tail for _, _, tail in outs])
     pcm = []
     for (hops, first, _), p in zip(outs, prev):
-        hops[:, :C.HOP] = first + p        # the seam: one f32 add
+        hops[:C.HOP] = (first + p).T       # the seam: one f32 add
         pcm.append(hops)
-    full = np.zeros((rows, nf_pad * C.HOP), np.float32)
+    full = np.zeros((nf_pad * C.HOP, rows), np.float32)
     for rank, piece in enumerate(exchange.world_gather(pcm)[0]):
         d, s = grid.coords(rank)
         r, f = data_block(grid, d, rows), seq_block(grid, s, nf_pad)
-        full[r, f.start * C.HOP:f.stop * C.HOP] = piece.cpu().numpy()
-    return np.ascontiguousarray(full[:nch, C.HOP:C.HOP + n_samples].T), cfg
+        full[f.start * C.HOP:f.stop * C.HOP, r] = piece.cpu().numpy()
+    return np.ascontiguousarray(full[C.HOP:C.HOP + n_samples, :nch]), cfg

@@ -151,7 +151,7 @@ def capture_inputs(run, per_key: int = 1):
     ("transients", (rows, frames)), K6-K8 ("analysis_pre" / "mdct_post" /
     "psycho", (frame rows,)), K9 and K10 ("synth_pre" / "synth_post",
     (frame rows,)), in call order; the i-th call (i > 0) of a key is
-    stored under key + (i,)."""
+    stored under key + (i,). K10's arguments are kept up to `prev`."""
     import torch
     from .ops.kernels import (analysis_pre, fft_stages, mdct_post, psycho,
                               quant_cost, rd_loop, record_pack, synth_post,
@@ -187,9 +187,12 @@ def capture_inputs(run, per_key: int = 1):
             key = _key_of(args)
             i = calls[key] = calls.get(key, -1) + 1
             if i < per_key:
+                # K10's `out` (the caller's slice of a clip buffer) is
+                # left out: a replay writes a fresh pcm
+                kept = args[:8] if key[0] == "synth_post" else args
                 seen[key + ((i,) if i else ())] = tuple(
                     a.clone() if isinstance(a, torch.Tensor) else a
-                    for a in args)
+                    for a in kept)
             return _orig(*args)
         setattr(mod, attr, rec)
     try:
@@ -289,7 +292,8 @@ def synthesis_bound(name, args):
     """(bytes, ops, ops per s) of one launch of K9 or K10 on these inputs:
     K9 reads q, the exponents and the block types once and writes K1's
     four inputs (8 KB a frame); K10 reads the transform each frame's block
-    type selects (4 KB a frame) and the block types and writes the PCM,
+    type selects (4 KB a frame), the block types and, where given, the
+    previous chunk's tail (4 KB a row) and writes the PCM (f32 or int16),
     first and tail; both read their tables once. Ops as counted above,
     K9's chain for each bin of this run's q beyond QMAX."""
     import torch
@@ -304,9 +308,12 @@ def synthesis_bound(name, args):
                 + tables, nf * SYNTH_PRE_OPS_PER_FRAME
                 + over * SYNTH_PRE_OPS_OVER_QMAX, F32_OPS_PER_S)
     bt, pcm16 = args[4], args[6]
+    prev = args[7] if len(args) > 7 else None
     r, nf = bt.shape[0], bt.numel()
     n_short = int((bt == C.SHORT).sum())
     out = nf * C.HOP * (2 if pcm16 else 4) + 2 * r * C.HOP * 4
+    if prev is not None:
+        out += r * C.HOP * 4                # the previous tail, read
     ops = ((nf - n_short) * SYNTH_POST_OPS_LONG
            + n_short * SYNTH_POST_OPS_SHORT
            + nf * (SYNTH_POST_OPS_HOP + (SYNTH_POST_OPS_PCM16 if pcm16

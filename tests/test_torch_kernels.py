@@ -28,7 +28,9 @@ held to the JAX package's decoder jit in tests/test_torch_synthesis.py,
 and here (on a card) each kernel to its plain version at 1, 31, 538 and
 2048 frame rows on music, silent, all-SHORT and edge records (q over the
 int16 range, exponents whose steps wrap to inf and NaN), non-finite
-transforms, bad inputs, and the card decode's launch counts.
+transforms, K10 at 1, 2 and 3 rows with the previous chunk's tail null,
+real or non-finite, bad inputs, the card decode's
+launch counts and the 30 s decode's one download.
 Tests marked `cuda` need a card and skip here; the machine with the card
 has no JAX, so this module imports JAX only inside the tests that compare
 against it, and there the tests run as `MRC_TESTS_KEEP_TPU=1 python -m
@@ -941,11 +943,63 @@ def test_synthesis_kernels_match_plain_on_card(shape, case):
                        nan_payload=case == "edge")
 
 
+def _k10_tails(rng, rows, kind):
+    """A previous chunk's tail [rows, 1024] f32: None, "real" (values a
+    tail holds) or "special" (+0, -0, +-inf and NaN among them)."""
+    if kind == "none":
+        return None
+    t = (rng.standard_normal((rows, 1024)) * 0.3).astype(np.float32)
+    if kind == "special":
+        t[:, 0::5] = 0.0
+        t[:, 1::5] = -0.0
+        t[:, 2::17] = np.inf
+        t[:, 3::19] = -np.inf
+        t[:, 4::23] = np.nan
+    return torch.from_numpy(t).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prev", ["none", "real", "special"])
+@pytest.mark.parametrize("rows", [1, 2, 3])
+def test_synth_post_kernel_prev_and_rows_on_card(rows, prev):
+    """K10 at R = 1, 2, 3 rows (row groups of 2: 3 rows leave one of 1),
+    with the previous chunk's tail null, real or holding +-0, +-inf and
+    NaN, f32 and int16: pcm (time-major),
+    first and tail bitwise equal to the plain version's on the card; into
+    a slice of a clip buffer too, leaving the rest of it as it was."""
+    _need_card()
+    rng = np.random.default_rng(rows * 10 + len(prev))
+    for s, case in ((1, "music"), (7, "short"), (40, "music"),
+                    (269, "silent")):
+        recs = _synth_records(rng, rows, s, 44100, case)
+        args = tuple(torch.from_numpy(a).cuda() for a in recs)
+        pre = synth_pre.synth_pre_plain(*args, 44100)
+        spec = (*fft_stages.fft_plain(*pre[:2]),
+                *fft_stages.fft_plain(*pre[2:]))
+        tail = _k10_tails(rng, rows, prev)
+        for pcm16 in (False, True):
+            want = synth_post.synth_post_plain(*spec, args[2], "kbd", pcm16,
+                                               tail)
+            got = synth_post.synth_post_kernel(*spec, args[2], "kbd",
+                                               pcm16, tail)
+            assert got[0].shape == (s * 1024, rows)
+            _same_bits(got, want)
+            clip = torch.full(((s + 2) * 1024, rows), 5,
+                              dtype=want[0].dtype, device="cuda")
+            got = synth_post.synth_post_kernel(
+                *spec, args[2], "kbd", pcm16, tail, clip[1024:-1024])
+            _same_bits((clip[1024:-1024],) + got[1:], want)
+            assert (clip[:1024] == 5).all() and (clip[-1024:] == 5).all()
+            if prev == "special" and not pcm16:
+                assert want[0][:1024].isnan().any()
+
+
 @pytest.mark.cuda
 def test_synth_post_kernel_nonfinite_on_card():
     """K10 on transforms holding inf and NaN (what a corrupt stream's
-    exponents can give): int16 and f32 PCM equal the plain version's on the
-    card, clamp, rounding and the cast of a NaN included."""
+    exponents can give), with and without a tail holding them too: int16
+    and f32 PCM equal the plain version's on the card, clamp, rounding and
+    the cast of a NaN included."""
     _need_card()
     rng = np.random.default_rng(3)
     rows, s = 2, 40
@@ -961,13 +1015,16 @@ def test_synth_post_kernel_nonfinite_on_card():
         flat[(pick >= 0.005) & (pick < 0.1)] *= 1e4      # beyond the clamp
         planes.append(torch.from_numpy(a).cuda())
     bt = bt.cuda()
-    for pcm16 in (True, False):
-        want = synth_post.synth_post_plain(*planes, bt, "sine", pcm16)
-        got = synth_post.synth_post_kernel(*planes, bt, "sine", pcm16)
-        _same_bits(got, want)
-        if pcm16:
-            assert (want[0].cpu() == 32767).any()
-            assert (want[0].cpu() == -32768).any()
+    for tail in (None, _k10_tails(rng, rows, "special")):
+        for pcm16 in (True, False):
+            want = synth_post.synth_post_plain(*planes, bt, "sine", pcm16,
+                                               tail)
+            got = synth_post.synth_post_kernel(*planes, bt, "sine", pcm16,
+                                               tail)
+            _same_bits(got, want)
+            if pcm16:
+                assert (want[0].cpu() == 32767).any()
+                assert (want[0].cpu() == -32768).any()
 
 
 @pytest.mark.cuda
@@ -993,6 +1050,20 @@ def test_synthesis_kernels_reject_bad_inputs_on_card():
         synth_post.synth_post_kernel(*spec, bt.reshape(-1), "sine", False)
     with pytest.raises(ValueError):
         synth_post.synth_post_kernel(*spec, bt.to(torch.int32), "sine", True)
+    with pytest.raises(ValueError):                         # prev's rows
+        synth_post.synth_post_kernel(*spec, bt, "sine", True,
+                                     torch.zeros(1, 1024, device="cuda"))
+    with pytest.raises(ValueError):                         # prev on host
+        synth_post.synth_post_kernel(*spec, bt, "sine", True,
+                                     torch.zeros(2, 1024))
+    with pytest.raises(ValueError):                         # out's dtype
+        synth_post.synth_post_kernel(
+            *spec, bt, "sine", True, None,
+            torch.empty(5 * 1024, 2, device="cuda"))
+    with pytest.raises(ValueError):                         # out [R, n]
+        synth_post.synth_post_kernel(
+            *spec, bt, "sine", False, None,
+            torch.empty(2, 5 * 1024, device="cuda"))
 
 
 @pytest.mark.cuda
@@ -1026,6 +1097,50 @@ def test_decode_launches_synthesis_kernels_on_card(monkeypatch, dec_chunk):
         assert counts == {**{m.__name__.rsplit(".", 1)[-1]: 0 for m in mods},
                           "synth_pre": nf, "synth_post": nf,
                           "fft_stages": 2 * nf}
+        yc, _ = codec.decode(bs, device="cpu", pcm_dtype=pcm_dtype)
+        assert y.dtype == yc.dtype
+        if y.dtype == np.float32:
+            y, yc = y.view(np.int32), yc.view(np.int32)
+        np.testing.assert_array_equal(y, yc)
+
+
+@pytest.mark.cuda
+def test_30s_decode_launches_and_one_download_on_card():
+    """The 30 s stereo clip's decode (2 chunks of 1024 and 269 frames) on
+    the card: K9 x 2, K1 x 4 and K10 x 2 and no other kernel, and one
+    device-to-host copy, the PCM already [n, channels]; f32 and int16 ==
+    the CPU decode by bits."""
+    _need_card()
+    from torch.profiler import ProfilerActivity, profile
+    from mrcaudiocodec_tpu_torch.bench import make_clip, to_i16
+    from mrcaudiocodec_tpu_torch.config import CodecConfig
+    from mrcaudiocodec_tpu_torch.models import codec
+    cfg = CodecConfig(fs=44100, channels=2, bitrate=128000)
+    bs = codec.encode(to_i16(make_clip(44100, 30.0, 2)), cfg, device="cuda")
+    mods = (fft_stages, quant_cost, record_pack, rd_loop, transients,
+            analysis_pre, mdct_post, psycho, synth_pre, synth_post)
+    names = {m.__name__.rsplit(".", 1)[-1] for m in mods}
+    for pcm_dtype in ("float32", "int16"):
+        codec.decode(bs, device="cuda", pcm_dtype=pcm_dtype)   # warm-up
+        torch.cuda.synchronize()
+        for m in mods:
+            m.launches = 0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            y, _ = codec.decode(bs, device="cuda", pcm_dtype=pcm_dtype)
+            torch.cuda.synchronize()
+        counts = {m.__name__.rsplit(".", 1)[-1]: m.launches for m in mods}
+        assert counts == {**{n: 0 for n in names}, "synth_pre": 2,
+                          "synth_post": 2, "fft_stages": 4}
+        events = [(e.key, e.count) for e in prof.key_averages()
+                  if getattr(e, "self_device_time_total", 0) > 0]
+        down = sum(c for k, c in events if "DtoH" in k or
+                   "Device -> Host" in k)
+        kernels = [(k, c) for k, c in events if "Memcpy" not in k
+                   and "Memset" not in k]
+        assert down == 1, events
+        assert all(any(f"{n}_kernel" in k for n in names)
+                   for k, _ in kernels), kernels
+        assert y.shape == (30 * 44100, 2) and y.flags.c_contiguous
         yc, _ = codec.decode(bs, device="cpu", pcm_dtype=pcm_dtype)
         assert y.dtype == yc.dtype
         if y.dtype == np.float32:

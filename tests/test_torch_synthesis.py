@@ -157,7 +157,7 @@ def test_split_synthesis_equals_jax(case, pcm16):
         *(torch.from_numpy(a) for a in (q, e, bt)), fs, window, pcm16)
     jpcm, jfirst, jtail = _jax_synth(q, e, bt, fs, window, pcm16)
     assert pcm.dtype == (torch.int16 if pcm16 else torch.float32)
-    assert_bits(pcm, jpcm)
+    assert_bits(pcm, jpcm.T)              # time-major: [s * HOP, R]
     assert_bits(tail, jtail)
     np.testing.assert_array_equal(first.numpy(), jfirst)
     assert_bits(first + 0.0, jfirst)
@@ -180,8 +180,8 @@ def test_one_frame_chunk_jax_folds_the_zero_add():
     pcm, first, tail = decoder._synth_chunk(
         *(torch.from_numpy(a) for a in (q, e, bt)), 44100, "sine", False)
     jpcm, jfirst, jtail = _jax_synth(q, e, bt, 44100, "sine", False)
-    np.testing.assert_array_equal(pcm.numpy(), jpcm)
-    assert_bits(pcm, first + 0.0)
+    np.testing.assert_array_equal(pcm.numpy(), jpcm.T)
+    assert_bits(pcm.T, first + 0.0)
     assert_bits(jpcm, first)
     assert_bits(jfirst, first)
     assert_bits(tail, jtail)
@@ -222,34 +222,129 @@ def test_synthesis_wrappers_reject_bad_inputs():
 # ---------------------------------------------------------------------------
 
 
-def test_decode_at_small_chunks_equals_spec_by_bits(monkeypatch):
+@pytest.mark.parametrize("pcm_dtype", ["float32", "int16"])
+@pytest.mark.parametrize("chunks", ["5 frames", "3 chunks"])
+def test_decode_at_small_chunks_equals_spec_by_bits(monkeypatch, chunks,
+                                                    pcm_dtype):
     """A 0.5 s stereo stream that falls silent after 1/8 s, decoded in
-    chunks of 5 frames: the port's float32 PCM equals the port's spec
-    decode by int32 view. The JAX decode (its chunks of 5 too) equals it
-    in value; its bits differ only where the spec has -0 and JAX +0, each
-    in the first hop of a JAX chunk: the JAX jit's `first + 0` before the
-    seam add."""
+    chunks of 5 frames and in 3 chunks, each chunk's K10 taking the one
+    before's tail: the port's float32 PCM equals the port's spec decode by
+    int32 view, its int16 PCM the spec's rounded as K10 rounds (half to
+    even, clamped). The JAX decode (at the same DEC_CHUNK) equals it in
+    value; in float32 its bits differ only where the spec has -0 and JAX
+    +0, each in the first hop of a JAX chunk: the JAX jit's `first + 0`
+    before the seam add."""
     from mrcaudiocodec_tpu.models import decoder as jdec
     from mrcaudiocodec_tpu.models.encoder import _chunk_schedule
     bs = _stream(44100, "sine", "fade", seconds=0.5, seed=4)
     want, _ = spec.decode(bs)
-    monkeypatch.setattr(decoder, "DEC_CHUNK", 5)
-    got, _ = codec.decode(bs, device="cpu")
-    assert len(decoder.record_slabs(bs)) > 2
+    nf = read_header(bs)[1]
+    size = 5 if chunks == "5 frames" else -(-nf // 3)
+    monkeypatch.setattr(decoder, "DEC_CHUNK", size)
+    n_chunks = len(decoder.record_slabs(bs))
+    assert n_chunks > 2 and (chunks == "5 frames" or n_chunks == 3)
+    got, _ = codec.decode(bs, device="cpu", pcm_dtype=pcm_dtype)
+    monkeypatch.setattr(jdec, "DEC_CHUNK", size)
+    jgot, _ = jdec.decode(bs, pcm_dtype=pcm_dtype)
+    if pcm_dtype == "int16":
+        want16 = np.clip(np.round(want * F32(32767.0)), -32768,
+                         32767).astype(np.int16)
+        assert_bits(got, want16)
+        assert_bits(jgot, want16)
+        return
     assert_bits(got, want)
     assert (_bits(want) == NEG_ZERO).sum() > 1000    # silence across seams
-    monkeypatch.setattr(jdec, "DEC_CHUNK", 5)
-    jgot, _ = jdec.decode(bs)
     np.testing.assert_array_equal(jgot, want)
     diff = np.nonzero(_bits(jgot) != _bits(want))
     assert len(diff[0]) > 0
     assert (_bits(want)[diff] == NEG_ZERO).all()
     assert (_bits(jgot)[diff] == 0).all()
-    nf = read_header(bs)[1]
     seam = np.zeros(want.shape[0], bool)
-    for f0 in np.cumsum(_chunk_schedule(nf, 5))[:-1]:
+    for f0 in np.cumsum(_chunk_schedule(nf, size))[:-1]:
         seam[(f0 - 1) * C.HOP:f0 * C.HOP] = True    # the PCM of hop f0
     assert seam[diff[0]].all()
+
+
+def _old_join(outs, n_samples, pcm16):
+    """The host seam the decoder used before K10 took it: each chunk's
+    [R, s*HOP] pcm with +0 for the previous chunk, its raw first hop and
+    tail (numpy); each seam hop first + the chunk before's tail (one f32
+    add), then numpy's round, clip and int16 cast; the chunks joined and
+    transposed, the priming hop dropped."""
+    pcms = [o[0] for o in outs]
+    for c in range(1, len(outs)):
+        seam = outs[c][1] + outs[c - 1][2]
+        if pcm16:
+            pcms[c][:, :C.HOP] = np.clip(np.round(seam * 32767.0),
+                                         -32768, 32767).astype(np.int16)
+        else:
+            pcms[c][:, :C.HOP] = seam
+    flat = np.concatenate(pcms, axis=1)
+    return np.ascontiguousarray(flat[:, C.HOP:C.HOP + n_samples].T)
+
+
+def _with_records(bs, swap):
+    """bs with the records {index: content bytes} swapped in (each behind
+    its 20-bit length prefix, the content's zero padding counted)."""
+    from mrcaudiocodec_tpu_torch.bitstream import (HEADER_BYTES,
+                                                   frame_byte_offsets)
+    cfg, nf, _, _ = read_header(bs)
+    offs, _ = frame_byte_offsets(bs, HEADER_BYTES, nf * cfg.channels)
+    ends = list(offs[1:]) + [len(bs)]
+    out = bs[:HEADER_BYTES]
+    for i, (a, b) in enumerate(zip(offs, ends)):
+        if i not in swap:
+            out += bs[a:b]
+            continue
+        w = BitWriter()
+        w.write(8 * len(swap[i]), C.FRAME_LEN_BITS)
+        for byte in swap[i]:
+            w.write(byte, 8)
+        w.align()
+        out += w.getvalue()
+    return out
+
+
+def test_decode_crafted_escapes_at_seams_equals_old_join(monkeypatch):
+    """Records with escapes beyond QMAX (test_torch_hardening.py's crafted
+    escape: q -16507 and -32768 once the int16 slab cuts them) on both
+    sides of chunk seams, decoded at DEC_CHUNK 5: f32 and int16 PCM ==
+    the host seam the decoder used to add (_old_join), bit for bit, and
+    == the JAX decoder in value. Their samples reach 256 x full scale, so
+    the int16 seam hops clamp; none is NaN (no cast of a NaN at a seam
+    changed with the seam's move into K10)."""
+    from mrcaudiocodec_tpu.models import decoder as jdec
+    bs = _stream(44100, "sine", "music", seconds=0.5, seed=6)
+    # frames 4 and 5 (seam hop 5), 9 and 10 (hop 10); 2 channels a frame
+    swap = {8: _escape_content(44100, 10, 123),
+            11: _escape_content(44100, 11, 0),
+            18: _escape_content(44100, 11, 0),
+            20: _escape_content(44100, 10, 123)}
+    bs = _with_records(bs, swap)
+    _, nf, n_samples, _ = read_header(bs)
+    monkeypatch.setattr(decoder, "DEC_CHUNK", 5)
+    monkeypatch.setattr(jdec, "DEC_CHUNK", 5)
+    slabs = decoder.record_slabs(bs)
+    assert (slabs[0][0][0, 4] == -16507).any()
+    seam = np.zeros(n_samples, bool)
+    for f0 in (5, 10):
+        seam[(f0 - 1) * C.HOP:f0 * C.HOP] = True
+    for pcm16 in (False, True):
+        outs = []
+        for sl in slabs:
+            pcm, first, tail = decoder._synth_chunk(
+                *(torch.from_numpy(a) for a in sl), 44100, "sine", pcm16)
+            outs.append([pcm.numpy().T.copy(), first.numpy(), tail.numpy()])
+        want = _old_join(outs, n_samples, pcm16)
+        dtype = "int16" if pcm16 else "float32"
+        got, _ = codec.decode(bs, device="cpu", pcm_dtype=dtype)
+        assert_bits(got, want)
+        np.testing.assert_array_equal(got, jdec.decode(bs, dtype)[0])
+        if pcm16:
+            assert (np.abs(got[seam].astype(np.int32)) == 32767).any()
+        else:
+            assert np.isfinite(got).all()
+            assert np.abs(got[seam]).max() > 100.0
 
 
 # ---------------------------------------------------------------------------
@@ -371,36 +466,257 @@ def test_k10_short_overlap_order_equals_plain():
     assert not (_bits(got[0]) == NEG_ZERO).any()
 
 
-@pytest.mark.parametrize("pcm16", [False, True])
-def test_k10_hop_map_equals_plain(pcm16):
-    """K10's block f < s writes hop f = frame f's first half + frame f-1's
-    second half (+0.0 at f = 0) and, at f = 0, frame 0's first half raw;
-    block s writes the tail: == synth_post_plain."""
-    rng = np.random.default_rng(3)
-    r, s = 2, 6
+def _k10_planes(rng, r, s, silent=4):
+    """K1's output planes of r x s frames (signed zeros among the values,
+    the first `silent` frames all zero) and block types cycling 0..4."""
     planes = [torch.from_numpy(_signed(rng, sh)) for sh in
               ((r * s, 512),) * 2 + ((r * s, 8, 64),) * 2]
-    planes[0][:4] = 0.0                        # silent frames
-    planes[1][:4] = -0.0
-    planes[2][:4] = 0.0
-    planes[3][:4] = -0.0
+    for i, p in enumerate(planes):
+        p[:silent] = -0.0 if i % 2 else 0.0    # silent frames
     bt = torch.from_numpy((np.arange(r * s) % 5).reshape(r, s).astype(
         np.int8))
-    frames = dsp.synth_windowed(*planes, bt.reshape(-1), "kbd").reshape(
-        r, s, C.LONG_SIZE).numpy()
-    hops = np.empty((r, s, C.HOP), F32)
-    for f in range(s):
-        prev = frames[:, f - 1, C.HOP:] if f else np.zeros((r, C.HOP), F32)
-        hops[:, f] = frames[:, f, :C.HOP] + prev
-    pcm = hops.reshape(r, s * C.HOP)
+    return planes, bt
+
+
+def _k10_pairs(ar, ai, tab, h, m):
+    """K10's coefficient pair (c[2m], c[2m+1]) of a size-2h DCT-IV, f32 ops
+    in dct_iv_post's order: A[m] for the even one, A[h-1-m] for the odd."""
+    pr, pi, scale = tab[2 * h:3 * h], tab[3 * h:4 * h], tab[4 * h]
+    i = h - 1 - m
+    even = ar[..., m] * pr[m] - ai[..., m] * pi[m]
+    odd = -(ar[..., i] * pi[i] + ai[..., i] * pr[i])
+    return even * scale, odd * scale
+
+
+def _k10_put(y, owner, tag, at, vals):
+    """Entries `at` of y get vals; each must be written once."""
+    assert (owner[at] != tag).all()
+    y[at] = vals
+    owner[at] = tag
+
+
+def _k10_stage(planes, fi, b, first, y, owner, tag, w, sw):
+    """K10's staging of frame fi's half (`first`: the first half, else the
+    second) into y, f32 [1280], by its 256 threads: each pair (c[k],
+    c[k+1]), k = 2m, computed once, then the two samples the unfold gives
+    each, negated where it says, times the window: a long frame's half as
+    its 1024 samples (w: the half's long window), a SHORT frame's 5
+    sub-blocks that meet the half as 256 windowed samples each (sw: the
+    short window). owner records `tag` on every sample written."""
+    l_re, l_im, s_re, s_im = planes
+    if b != C.SHORT:
+        m = np.arange(256) + (256 if first else 0)
+        ce, co = _k10_pairs(l_re[fi], l_im[fi], xmath.dct4_blob(1024), 512,
+                            m)
+        k = 2 * m
+        if first:      # c[k] at k - 512 (+) and 1535 - k (-)
+            a, sign = k - 512, F32(1.0)
+        else:          # c[k] at 512 + k (-) and 511 - k (-)
+            a, sign = 512 + k, F32(-1.0)
+        b_ = 1534 - k if first else 510 - k
+        _k10_put(y, owner, tag, a, (sign * ce) * w[a])
+        _k10_put(y, owner, tag, a + 1, (sign * co) * w[a + 1])
+        _k10_put(y, owner, tag, b_, (-co) * w[b_])
+        _k10_put(y, owner, tag, b_ + 1, (-ce) * w[b_ + 1])
+        return
+    # threads t with t >> 6 == g % 4 take sub-block g, pair m = t & 63
+    m = np.arange(64)
+    k = 2 * m
+    for g in (range(0, 5) if first else range(3, 8)):
+        ce, co = _k10_pairs(s_re[fi, g], s_im[fi, g], xmath.dct4_blob(128),
+                            64, m)
+        base = 256 * (g - (0 if first else 3))
+        a = np.where(k >= 64, k - 64, 192 + k)
+        sign = np.where(k >= 64, F32(1.0), F32(-1.0)).astype(F32)
+        _k10_put(y, owner, tag, base + a, (sign * ce) * sw[a])
+        _k10_put(y, owner, tag, base + a + 1, (sign * co) * sw[a + 1])
+        _k10_put(y, owner, tag, base + 190 - k, (-co) * sw[190 - k])
+        _k10_put(y, owner, tag, base + 191 - k, (-ce) * sw[191 - k])
+
+
+def _k10_read(y, owner, tag, b, first, i):
+    """K10's sample i (an array, 0 .. 1023) of a staged half: a long
+    frame's as staged; a SHORT frame's sub-blocks whose span holds it
+    added onto +0 in group order. Every entry read must carry `tag`."""
+    if b != C.SHORT:
+        assert (owner[i] == tag).all()
+        return y[i]
+    g_base = 0 if first else 3
+    p = i + (0 if first else C.HOP) - C.SHORT_OFFSET
+    v = np.full(i.shape, F32(0.0))
+    for g in range(C.N_SHORT):
+        q = p - 128 * g
+        inside = (q >= 0) & (q < 256)
+        if not inside.any():
+            continue
+        at = 256 * (g - g_base) + q[inside]
+        assert 0 <= g - g_base < 5 and (owner[at] == tag).all()
+        v[inside] = v[inside] + y[at]
+    return v
+
+
+def _k10_model(planes, bt, window, pcm16, prev):
+    """A numpy model of K10's blocks: block (h, row pair) stages frame h-1's
+    second half and frame h's first half as windowed samples (`owner`
+    shows what each entry holds), then writes hop h: frame h's first half
+    + frame h-1's second half (prev's row, or +0, at hop 0), time-major,
+    and at hop s the tail."""
+    planes = [p.numpy() for p in planes]
+    bt = bt.numpy()
+    r, s = bt.shape
+    lw, sw = (w.numpy() for w in dsp._windows(window, "cpu"))
+    pcm = np.full((s * C.HOP, r), np.nan, F32)
+    first, tail = (np.full((r, C.HOP), np.nan, F32) for _ in range(2))
+    i = np.arange(C.HOP)
+    for r0 in range(0, r, 2):
+        for h in range(s + 1):
+            ys = np.full((2, 2, 1280), np.nan, F32)
+            owner = np.full((2, 2, 1280), -9)
+            for rr in range(min(2, r - r0)):
+                row = r0 + rr
+                for k, fr in enumerate((h - 1, h)):
+                    if 0 <= fr < s:
+                        b = int(bt[row, fr])
+                        w = lw[b, (0 if k else C.HOP):][:C.HOP]
+                        _k10_stage(planes, row * s + fr, b, k == 1,
+                                   ys[k, rr], owner[k, rr], fr, w, sw)
+                if h > 0:
+                    pv = _k10_read(ys[0, rr], owner[0, rr], h - 1,
+                                   int(bt[row, h - 1]), False, i)
+                else:
+                    pv = (prev[row].numpy() if prev is not None
+                          else np.zeros(C.HOP, F32))
+                if h == s:
+                    tail[row] = pv
+                    continue
+                fv = _k10_read(ys[1, rr], owner[1, rr], h, int(bt[row, h]),
+                               True, i)
+                if h == 0:
+                    first[row] = fv
+                pcm[h * C.HOP:(h + 1) * C.HOP, row] = fv + pv
     if pcm16:
         pcm = np.clip(np.round(pcm * F32(32767.0)), -32768, 32767).astype(
             np.int16)
-    got = synth_post.synth_post_plain(*planes, bt, "kbd", pcm16)
-    assert_bits(got[0], pcm)
-    assert_bits(got[1], frames[:, 0, :C.HOP])
-    assert_bits(got[2], frames[:, -1, C.HOP:])
-    assert (_bits(frames[:, 0, :C.HOP]) == NEG_ZERO).any()
+    return pcm, first, tail
+
+
+@pytest.mark.parametrize("pcm16", [False, True], ids=["f32", "int16"])
+@pytest.mark.parametrize("rows,with_prev", [
+    (2, False), (2, True), (1, False), (3, True), (1, True)])
+def test_k10_hop_map_equals_plain(rows, with_prev, pcm16):
+    """K10's blocks (the numpy model: a block a hop and a row pair, the
+    staged halves, the sample map, the seam) write the time-major pcm,
+    `first` and `tail` == synth_post_plain, at R = 1, 2, 3, with and
+    without the previous chunk's tail, signed zeros included."""
+    rng = np.random.default_rng(3 + rows + with_prev)
+    s = 6
+    planes, bt = _k10_planes(rng, rows, s)
+    prev = (torch.from_numpy(_signed(rng, (rows, C.HOP)))
+            if with_prev else None)
+    got = _k10_model(planes, bt, "kbd", pcm16, prev)
+    want = synth_post.synth_post_plain(*planes, bt, "kbd", pcm16, prev)
+    for g, w in zip(got, want):
+        assert_bits(g, w)
+    assert want[0].shape == (s * C.HOP, rows)
+    assert (_bits(want[1]) == NEG_ZERO).any()
+
+
+@pytest.mark.parametrize("kind", ["long", "short"])
+def test_k10_staging_map_equals_unfold(kind):
+    """K10's staging of one frame's half: the pairs (c[2m], c[2m+1]) from
+    A[m] and A[H-1-m] (long: m = t + 256 for the first half, t for the
+    second; SHORT: the sub-blocks 0..4, or 3..7, that meet the half), each
+    coefficient's two samples by the unfold's index map, negated where it
+    says, times the window, every sample written once: == xmath.unfold of
+    dct_iv_post times the window (sub-block by sub-block for SHORT),
+    signed zeros included."""
+    rng = np.random.default_rng(9)
+    planes = [_signed(rng, sh) for sh in ((1, 512),) * 2 + ((1, 8, 64),) * 2]
+    b = C.SHORT if kind == "short" else C.START
+    tp = [torch.from_numpy(p) for p in planes]
+    lw, sw = (w.numpy() for w in dsp._windows("kbd", "cpu"))
+    if kind == "long":
+        want = (xmath.unfold(xmath.dct_iv_post(*tp[:2]))[0].numpy()
+                * lw[b])
+    else:
+        want = xmath.unfold(xmath.dct_iv_post(*tp[2:]))[0].numpy() * sw
+    for first in (True, False):
+        y = np.full(1280, np.nan, F32)
+        owner = np.full(1280, -1)
+        w = lw[b, (0 if first else C.HOP):][:C.HOP]
+        _k10_stage(planes, 0, b, first, y, owner, 0, w, sw)
+        if kind == "long":
+            assert (owner[:C.HOP] == 0).all() and (owner[C.HOP:] < 0).all()
+            assert_bits(y[:C.HOP], want[(0 if first else C.HOP):][:C.HOP])
+        else:
+            assert (owner == 0).all()
+            for slot in range(5):
+                g = slot + (0 if first else 3)
+                assert_bits(y[256 * slot:256 * (slot + 1)], want[g])
+        assert (_bits(y[owner == 0]) == NEG_ZERO).any()
+
+
+def test_synth_post_prev_equals_old_seam():
+    """synth_post_plain with prev == the seam the host used to add: two
+    chunks synthesized apart, chunk 1's hop 0 = its raw `first` + chunk
+    0's tail (one f32 add), then round / clip / int16 as numpy did; and
+    the two chunks' time-major pcm joined == one chunk of both."""
+    rng = np.random.default_rng(21)
+    planes, bt = _k10_planes(rng, 2, 10, silent=0)
+    for i in range(4):
+        planes[i][[5, 6, 15, 16]] = -0.0 if i % 2 else 0.0   # around seam
+    parts = [([p[sl] for p in planes], bt[:, c].contiguous())
+             for sl, c in ((np.r_[0:5, 10:15], slice(0, 5)),
+                           (np.r_[5:10, 15:20], slice(5, 10)))]
+    a = synth_post.synth_post_plain(*parts[0][0], parts[0][1], "sine",
+                                    False)
+    raw = synth_post.synth_post_plain(*parts[1][0], parts[1][1], "sine",
+                                      False)
+    seam = raw[1].numpy() + a[2].numpy()          # the old host seam add
+    for pcm16 in (False, True):
+        got = synth_post.synth_post_plain(*parts[1][0], parts[1][1], "sine",
+                                          pcm16, a[2])
+        old = raw[0].numpy().copy()
+        if pcm16:
+            old = np.clip(np.round(old * F32(32767.0)), -32768,
+                          32767).astype(np.int16)
+            old[:C.HOP] = np.clip(np.round(seam * F32(32767.0)), -32768,
+                                  32767).astype(np.int16).T
+        else:
+            old[:C.HOP] = seam.T
+        assert_bits(got[0], old)
+        assert_bits(got[1], raw[1])
+        assert_bits(got[2], raw[2])
+        whole = synth_post.synth_post_plain(*planes, bt, "sine", pcm16)
+        joined = np.concatenate([synth_post.synth_post_plain(
+            *parts[0][0], parts[0][1], "sine", pcm16)[0].numpy(),
+            got[0].numpy()])
+        assert_bits(joined, whole[0])
+    assert (_bits(seam) == NEG_ZERO).any()
+    assert (_bits(raw[1].numpy() + F32(0.0)) != _bits(raw[1])).any()
+
+
+def test_synth_post_out_is_written_in_place():
+    """`out`, a slice of a clip buffer, receives pcm; the rest of the
+    buffer is left as it was; a misshapen or mistyped `out` raises."""
+    rng = np.random.default_rng(4)
+    planes, bt = _k10_planes(rng, 2, 3)
+    clip = torch.full((5 * C.HOP, 2), 7, dtype=torch.int16)
+    got = synth_post.synth_post_plain(*planes, bt, "sine", True,
+                                      out=clip[C.HOP:4 * C.HOP])
+    want = synth_post.synth_post_plain(*planes, bt, "sine", True)
+    assert got[0].data_ptr() == clip[C.HOP:].data_ptr()
+    assert_bits(clip[C.HOP:4 * C.HOP], want[0])
+    assert (clip[:C.HOP] == 7).all() and (clip[4 * C.HOP:] == 7).all()
+    with pytest.raises(ValueError):
+        synth_post.synth_post(*planes, bt, "sine", False,
+                              out=clip[C.HOP:4 * C.HOP])
+    with pytest.raises(ValueError):
+        synth_post.synth_post(*planes, bt, "sine", True,
+                              out=clip[C.HOP:3 * C.HOP])
+    with pytest.raises(ValueError):
+        synth_post.synth_post(*planes, bt, "sine", True,
+                              prev=torch.zeros(2, C.HOP - 1))
 
 
 # ---------------------------------------------------------------------------
@@ -466,5 +782,5 @@ def test_over_qmax_escape_through_synth_pre_equals_jax(fs, run, suffix,
         assert_bits(g, w)
     pcm, _, tail = decoder._synth_chunk(*args, fs, "sine", False)
     jpcm, _, jtail = _jax_synth(q, e, bt, fs, "sine", False)
-    assert_bits(pcm, jpcm)
+    assert_bits(pcm, jpcm.T)
     assert_bits(tail, jtail)
