@@ -286,6 +286,13 @@ def kernel_modules():
     return profiling.kernel_modules()
 
 
+def rd_exits() -> int:
+    """The RD loop's exit tests that have read the card so far (the port's
+    `host_syncs.rd_exit` counter)."""
+    from mrcaudiocodec_tpu_torch import trace
+    return trace.counters().get("host_syncs.rd_exit", 0)
+
+
 def plain_path(run, names=KERNELS):
     """run() with the named kernels' wrappers (default K1-K10) replaced by
     their plain PyTorch versions (on the same card) -> what run()
@@ -1159,12 +1166,12 @@ def phase_full(dev):
     try:
         for k in kernels:
             k.launches = 0
-        rd.host_syncs = 0
+        s0 = rd_exits()
         bs = codec.encode(xi, cfg, device=dev)
         torch.cuda.synchronize()
         enc_launch = {k.__name__.rsplit(".", 1)[-1]: k.launches
                       for k in kernels}
-        syncs = rd.host_syncs
+        syncs = rd_exits() - s0
     finally:
         rd.rd_loop_plain = orig_plain
     enc_peak = torch.cuda.max_memory_allocated()
@@ -1175,9 +1182,9 @@ def phase_full(dev):
     torch.cuda.synchronize()
     dec_launch = {k.__name__.rsplit(".", 1)[-1]: k.launches for k in kernels}
     dec_peak = torch.cuda.max_memory_allocated()
-    rd.host_syncs = 0
+    s0 = rd_exits()
     bs_plain = plain_path(lambda: codec.encode(xi, cfg, device=dev))
-    plain_syncs = rd.host_syncs
+    plain_syncs = rd_exits() - s0
     log(f"[full] launches in one encode ({chunks} chunk): {enc_launch}; in "
         f"one decode ({dec_chunks} chunks): {dec_launch}; RD loop-exit host "
         f"syncs in the encode: "
@@ -1270,7 +1277,7 @@ def phase_breakdown(dev):
     from mrcaudiocodec_tpu_torch import bitstream
     from mrcaudiocodec_tpu_torch import config as C
     from mrcaudiocodec_tpu_torch.models import codec, decoder, encoder, packing
-    from mrcaudiocodec_tpu_torch.ops import device_pack, rd, reservoir
+    from mrcaudiocodec_tpu_torch.ops import device_pack, reservoir
     from mrcaudiocodec_tpu_torch.profiling import (device_ms,
                                                    kernel_device_totals)
     cfg, xi = full_clip()
@@ -1501,9 +1508,9 @@ def phase_breakdown(dev):
     walls = {k: [] for k in runs}
     syncs = {}
     for name, fn in runs.items():
-        rd.host_syncs = 0
+        s0 = rd_exits()
         same = all(torch.equal(a, b) for a, b in zip(fn(), ref))
-        syncs[name] = rd.host_syncs
+        syncs[name] = rd_exits() - s0
         check(same, f"decide_chunk ({name}) differs from K4's")
     for r in range(6):
         order = list(runs) if r % 2 else list(runs)[::-1]

@@ -32,6 +32,7 @@ import torch.distributed as dist
 
 from . import audiofile
 from . import config as C
+from . import trace
 from .config import CodecConfig, frames_for_samples
 from .models import encoder
 
@@ -59,26 +60,40 @@ def encode_batch(clips: list[np.ndarray], cfg: CodecConfig,
     fused path, spread over `devices` (default `local_devices(device)`);
     otherwise each clip is encoded alone on the first of them. Streams are
     byte-identical either way."""
-    devices = list(devices or local_devices(device))
-    arrs = []
-    for x in clips:
-        x = np.asarray(x)
-        if x.dtype != np.int16:
-            x = x.astype(np.float32)
-        if x.ndim == 1:
-            x = x[:, None]
-        arrs.append(x)
-    if (len(arrs) > 1
-            and len({a.shape[1] for a in arrs}) == 1
-            and len({a.dtype for a in arrs}) == 1):
-        return _encode_batch_fused(arrs, cfg, devices)
-    return [encoder.encode(x, cfg, devices[0]) for x in arrs]
+    trace.count("requests.encode_batch")
+    with trace.span("mrc.encode_batch"):
+        devices = list(devices or local_devices(device))
+        arrs = []
+        for x in clips:
+            x = np.asarray(x)
+            if x.dtype != np.int16:
+                x = x.astype(np.float32)
+            if x.ndim == 1:
+                x = x[:, None]
+            arrs.append(x)
+        if (len(arrs) > 1
+                and len({a.shape[1] for a in arrs}) == 1
+                and len({a.dtype for a in arrs}) == 1):
+            return _encode_batch_fused(arrs, cfg, devices)
+        return [encoder.encode(x, cfg, devices[0]) for x in arrs]
 
 
 def _on_device(dev: torch.device):
     """Make `dev` the current card (nothing for the CPU)."""
     return (torch.cuda.device(dev) if dev.type == "cuda"
             else contextlib.nullcontext())
+
+
+def _pad_batch(arrs: list[np.ndarray], nf: int) -> np.ndarray:
+    """Same-shape clips [n_i, nch] -> their padded rows [clips * nch,
+    (nf + 6) * HOP]: clip i's channels are rows i*nch .. i*nch + nch - 1,
+    its samples from 2 * HOP on, silence elsewhere."""
+    nch = arrs[0].shape[1]
+    with trace.span("mrc.pad"):
+        P = np.zeros((len(arrs) * nch, (nf + 6) * C.HOP), arrs[0].dtype)
+        for i, a in enumerate(arrs):
+            P[i * nch:(i + 1) * nch, 2 * C.HOP:2 * C.HOP + a.shape[0]] = a.T
+        return P
 
 
 def _encode_batch_fused(arrs: list[np.ndarray], cfg: CodecConfig,
@@ -96,10 +111,8 @@ def _encode_batch_fused(arrs: list[np.ndarray], cfg: CodecConfig,
     n_list = [a.shape[0] for a in arrs]
     nf_list = [frames_for_samples(n) for n in n_list]
     nf = -(-max(nf_list) // FRAME_BUCKET) * FRAME_BUCKET
-    P = np.zeros((len(arrs) * nch, (nf + 6) * C.HOP), arrs[0].dtype)
+    P = _pad_batch(arrs, nf)
     nf_row = np.repeat(nf_list, nch)
-    for i, a in enumerate(arrs):
-        P[i * nch:(i + 1) * nch, 2 * C.HOP:2 * C.HOP + n_list[i]] = a.T
     per = -(-len(arrs) // min(len(devices), len(arrs)))    # clips a block
     blocks = [(encoder.device_for(devices[i]),
                slice(k * nch, min(k + per, len(arrs)) * nch))
@@ -115,8 +128,9 @@ def _encode_batch_fused(arrs: list[np.ndarray], cfg: CodecConfig,
     else:                   # one host thread a block: the devices overlap
         with concurrent.futures.ThreadPoolExecutor(len(blocks)) as pool:
             bodies = [b for got in pool.map(run, blocks) for b in got]
-    return [encoder.header(cfg, nf_list[i], n_list[i]) + bodies[i]
-            for i in range(len(arrs))]
+    with trace.span("mrc.assemble"):
+        return [encoder.header(cfg, nf_list[i], n_list[i]) + bodies[i]
+                for i in range(len(arrs))]
 
 
 def run_corpus(paths: list[str], outdir: str, cfg_base: dict,

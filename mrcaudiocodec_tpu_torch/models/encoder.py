@@ -22,6 +22,10 @@ back to the CPU. `encode_arrays` + `models/packing.pack_stream` (the
 decisions downloaded and packed on the host) are kept as the oracle the
 tests compare against.
 
+Each stage above is a span of `trace` (`mrc.pad`, `mrc.upload`,
+`mrc.analyze`, ...), recorded only while tracing is on; `trace.counters()`
+counts the bytes handed to the device and each blocking read.
+
 A chunk holds at most ENC_ROW_FRAMES rows x frames, so that 128 rows run
 about the memory of one stereo clip: a stereo clip runs chunks of 4096
 frames, the 64-clip stereo batch (128 rows) chunks of 64. The chunk size
@@ -34,6 +38,7 @@ import numpy as np
 import torch
 
 from .. import config as C
+from .. import trace
 from ..bitstream import write_header
 from ..config import CodecConfig
 from ..ops import device_pack, dsp, entropy, psycho, rd, reservoir
@@ -58,8 +63,9 @@ def _padded_rows(x: np.ndarray, nf: int) -> np.ndarray:
     n, nch = x.shape
     plen = 2 * C.HOP + nf * C.HOP + 2 * C.HOP + C.LONG_SIZE
     dtype = np.int16 if x.dtype == np.int16 else np.float32
-    P = np.zeros((nch, plen), dtype)
-    P[:, 2 * C.HOP:2 * C.HOP + n] = x.T
+    with trace.span("mrc.pad"):
+        P = np.zeros((nch, plen), dtype)
+        P[:, 2 * C.HOP:2 * C.HOP + n] = x.T
     return P
 
 
@@ -71,24 +77,26 @@ def _analyze_chunk(audio_ext, cfg: CodecConfig):
     the clip), so edge transients — and block types — equal the spec's.
     int16 input becomes f32 as x * 2^-15 (exact). On the card the chunk
     runs as kernels (`analyze_split`); on the CPU as the eager chain."""
-    if audio_ext.is_cuda:
-        return analyze_split(audio_ext, cfg)
-    a = audio_ext
-    if a.dtype == torch.int16:
-        a = a.to(torch.float32) * (1.0 / 32768.0)
-    r = a.shape[0]
-    s = a.shape[1] // C.HOP - 3
-    hops = a.reshape(r, s + 3, C.HOP)
-    frames_ext = torch.cat([hops[:, :-1], hops[:, 1:]], dim=-1)  # [R,s+2,2048]
-    tr_ext = dsp.detect_transients(
-        frames_ext.reshape(-1, C.LONG_SIZE)).reshape(r, s + 2)
-    bt = dsp.block_types(tr_ext, cfg.window_switching)             # [R, s]
-    frames = frames_ext[:, 1:-1].reshape(-1, C.LONG_SIZE)
-    btf = bt.reshape(-1)
-    coeffs = dsp.analyze(frames, btf, cfg.window)
-    allowed, pe, _ = psycho.analyze(frames, coeffs, btf, cfg.fs,
-                                    cfg.full_psycho)
-    return bt, coeffs, allowed, pe.reshape(r, s)
+    with trace.span("mrc.analyze"):
+        if audio_ext.is_cuda:
+            return analyze_split(audio_ext, cfg)
+        a = audio_ext
+        if a.dtype == torch.int16:
+            a = a.to(torch.float32) * (1.0 / 32768.0)
+        r = a.shape[0]
+        s = a.shape[1] // C.HOP - 3
+        hops = a.reshape(r, s + 3, C.HOP)
+        frames_ext = torch.cat([hops[:, :-1], hops[:, 1:]],
+                               dim=-1)                      # [R,s+2,2048]
+        tr_ext = dsp.detect_transients(
+            frames_ext.reshape(-1, C.LONG_SIZE)).reshape(r, s + 2)
+        bt = dsp.block_types(tr_ext, cfg.window_switching)         # [R, s]
+        frames = frames_ext[:, 1:-1].reshape(-1, C.LONG_SIZE)
+        btf = bt.reshape(-1)
+        coeffs = dsp.analyze(frames, btf, cfg.window)
+        allowed, pe, _ = psycho.analyze(frames, coeffs, btf, cfg.fs,
+                                        cfg.full_psycho)
+        return bt, coeffs, allowed, pe.reshape(r, s)
 
 
 def analyze_split(audio_ext, cfg: CodecConfig):
@@ -120,8 +128,7 @@ def chunk_spans(nf: int, rows: int = 1):
 
 def upload_chunk(P: np.ndarray, f0: int, s: int, dev):
     """The padded rows covering frames [f0-1, f0+s+1), on `dev`."""
-    return torch.from_numpy(np.ascontiguousarray(
-        P[:, f0 * C.HOP:(f0 + s + 3) * C.HOP])).to(dev)
+    return trace.upload(P[:, f0 * C.HOP:(f0 + s + 3) * C.HOP], dev)
 
 
 def decide_chunk(chunk, budgets, cfg: CodecConfig):
@@ -131,13 +138,14 @@ def decide_chunk(chunk, budgets, cfg: CodecConfig):
     bt, coeffs, allowed, _ = chunk
     nch, s = bt.shape
     btf = bt.reshape(-1)
-    q, amp, gain, _ = rd.rd_batch(coeffs, allowed, budgets.reshape(-1), btf,
-                                  cfg.fs)
-    cb, _ = entropy.payload_costs_and_choice(q, btf, cfg.fs)
-    return [t.reshape((nch, s) + tuple(t.shape[1:])).to(dtype)
-            for t, dtype in ((q, torch.int16), (amp, torch.int8),
-                             (gain, torch.int16), (btf, torch.int8),
-                             (cb, torch.int8))]
+    with trace.span("mrc.decide"):
+        q, amp, gain, _ = rd.rd_batch(coeffs, allowed, budgets.reshape(-1),
+                                      btf, cfg.fs)
+        cb, _ = entropy.payload_costs_and_choice(q, btf, cfg.fs)
+        return [t.reshape((nch, s) + tuple(t.shape[1:])).to(dtype)
+                for t, dtype in ((q, torch.int16), (amp, torch.int8),
+                                 (gain, torch.int16), (btf, torch.int8),
+                                 (cb, torch.int8))]
 
 
 def _analyze_rows(P: np.ndarray, nf_row, cfg: CodecConfig, dev):
@@ -146,8 +154,15 @@ def _analyze_rows(P: np.ndarray, nf_row, cfg: CodecConfig, dev):
     spans = chunk_spans(P.shape[1] // C.HOP - 6, P.shape[0])
     chunks = [_analyze_chunk(upload_chunk(P, f0, s, dev), cfg)
               for f0, s in spans]
-    pe = torch.cat([ch[3] for ch in chunks], dim=1)               # [R, nf]
-    return spans, chunks, reservoir.allocate(pe, cfg, nf_row)
+    return spans, chunks, _budgets(chunks, cfg, nf_row)
+
+
+def _budgets(chunks, cfg: CodecConfig, nf_row):
+    """Analysed chunks -> each row's frame budgets [R, nf] (their PE
+    joined, then `reservoir.allocate`)."""
+    with trace.span("mrc.budget"):
+        pe = torch.cat([ch[3] for ch in chunks], dim=1)           # [R, nf]
+        return reservoir.allocate(pe, cfg, nf_row)
 
 
 def download(decisions):
@@ -195,25 +210,29 @@ def pack_chunk(decisions, order, cfg: CodecConfig, cap: int):
     card)."""
     q, amp, gain, bt, cb = decisions
     r, s = bt.shape
-    return device_pack.pack_stream(
-        q.reshape(r * s, -1), amp.reshape(r * s, -1), gain.reshape(-1),
-        bt.reshape(-1), cb.reshape(r * s, -1), order, cfg.fs, cap)
+    with trace.span("mrc.pack"):
+        return device_pack.pack_stream(
+            q.reshape(r * s, -1), amp.reshape(r * s, -1), gain.reshape(-1),
+            bt.reshape(-1), cb.reshape(r * s, -1), order, cfg.fs, cap)
 
 
 def download_body(packed):
     """A packed chunk -> host arrays: its stream body uint8 [total] and the
     records' nbytes int64 [N], in stream order."""
     body, nbytes, status = packed
-    return (body[:int(status[0])].cpu().numpy(),
-            nbytes.cpu().numpy().astype(np.int64))
+    with trace.span("mrc.download"):
+        trace.count("host_syncs.download", 2)
+        return (body[:int(status[0])].cpu().numpy(),
+                nbytes.cpu().numpy().astype(np.int64))
 
 
 def clip_slices(body, nbytes, counts) -> list[bytes]:
     """A chunk's host body -> each clip's slice of it, from the records'
     lengths and the records of each clip (stream_order)."""
-    ends = np.concatenate([[0], np.cumsum(nbytes)])
-    at = ends[np.concatenate([[0], np.cumsum(counts)])]
-    return [body[a:b].tobytes() for a, b in zip(at[:-1], at[1:])]
+    with trace.span("mrc.assemble"):
+        ends = np.concatenate([[0], np.cumsum(nbytes)])
+        at = ends[np.concatenate([[0], np.cumsum(counts)])]
+        return [body[a:b].tobytes() for a, b in zip(at[:-1], at[1:])]
 
 
 def encode_chunks(audio, orders, spans, nf_row, cfg: CodecConfig, cap: int):
@@ -225,8 +244,7 @@ def encode_chunks(audio, orders, spans, nf_row, cfg: CodecConfig, cap: int):
     per chunk the RD loop and codebooks (`decide_chunk`, K2) and the
     record pack (`pack_chunk`, K3, which reads its 8-byte status)."""
     chunks = [_analyze_chunk(a, cfg) for a in audio]
-    budgets = reservoir.allocate(torch.cat([ch[3] for ch in chunks], dim=1),
-                                 cfg, nf_row)
+    budgets = _budgets(chunks, cfg, nf_row)
     for ch, (f0, s), order in zip(chunks, spans, orders):
         yield pack_chunk(decide_chunk(ch, budgets[:, f0:f0 + s], cfg), order,
                          cfg, cap)
@@ -241,15 +259,20 @@ def encode_rows(P: np.ndarray, nf_row, cfg: CodecConfig, dev):
     next chunk is packed."""
     nch = cfg.channels
     spans = chunk_spans(P.shape[1] // C.HOP - 6, P.shape[0])
-    orders = [stream_order(nf_row, nch, f0, s, P.shape[0]) for f0, s in spans]
+    with trace.span("mrc.order"):
+        orders = [stream_order(nf_row, nch, f0, s, P.shape[0])
+                  for f0, s in spans]
+    nf_dev = None if nf_row is None else trace.upload(
+        np.asarray(nf_row, np.int64), dev)
     packed = encode_chunks((upload_chunk(P, f0, s, dev) for f0, s in spans),
-                           (torch.from_numpy(o).to(dev) for o, _ in orders),
-                           spans, nf_row, cfg, device_pack.pack_cap_bytes(cfg))
+                           (trace.upload(o, dev) for o, _ in orders),
+                           spans, nf_dev, cfg, device_pack.pack_cap_bytes(cfg))
     pieces = [[] for _ in range(P.shape[0] // nch)]
     for p, (_, counts) in zip(packed, orders):
         for j, piece in enumerate(clip_slices(*download_body(p), counts)):
             pieces[j].append(piece)
-    return [b"".join(p) for p in pieces]
+    with trace.span("mrc.assemble"):
+        return [b"".join(p) for p in pieces]
 
 
 def header(cfg: CodecConfig, nf: int, n_samples: int) -> bytes:
@@ -262,16 +285,19 @@ def header(cfg: CodecConfig, nf: int, n_samples: int) -> bytes:
 def encode(x: np.ndarray, cfg: CodecConfig, device="cuda") -> bytes:
     """PCM [n] or [n, channels], float32 in [-1, 1] or raw int16 -> MRC1
     bytes, byte-identical to the spec codec's."""
-    x = np.asarray(x)
-    if x.dtype != np.int16:
-        x = x.astype(np.float32)
-    if x.ndim == 1:
-        x = x[:, None]
-    if x.shape[1] != cfg.channels:
-        raise ValueError(
-            f"config expects {cfg.channels} channels, got {x.shape[1]}")
-    dev = device_for(device)
-    nf = C.frames_for_samples(x.shape[0])
-    body, = encode_rows(_padded_rows(x, nf), None, cfg, dev)
-    return header(cfg, nf, x.shape[0]) + body
+    trace.count("requests.encode")
+    with trace.span("mrc.encode"):
+        x = np.asarray(x)
+        if x.dtype != np.int16:
+            x = x.astype(np.float32)
+        if x.ndim == 1:
+            x = x[:, None]
+        if x.shape[1] != cfg.channels:
+            raise ValueError(
+                f"config expects {cfg.channels} channels, got {x.shape[1]}")
+        dev = device_for(device)
+        nf = C.frames_for_samples(x.shape[0])
+        body, = encode_rows(_padded_rows(x, nf), None, cfg, dev)
+        with trace.span("mrc.assemble"):
+            return header(cfg, nf, x.shape[0]) + body
 

@@ -19,7 +19,7 @@ int16 [F, 1024], amp int8 [F, NB], gain int16 [F], bt int8 [F], cb int8
 kernel indexes its tables and the decisions with them unchecked, as the
 encoder's `decide_chunk` and `stream_order` make them. A record longer
 than `cap` raises: the wrapper reads the status, one small copy and the
-one host sync of a launch.
+one host sync of a launch (counted as `host_syncs.pack_status`).
 """
 from __future__ import annotations
 
@@ -31,6 +31,7 @@ import torch
 
 from ... import config as C
 from ... import tables as T
+from ... import trace
 from .quant_cost import check_aligned
 
 launches = 0            # kernel launches since the last reset
@@ -177,6 +178,7 @@ def pack_stream_kernel(q, amp, gain, bt, cb, order, fs: int, cap: int):
     if rc != 0:
         raise RuntimeError(f"record_pack launch failed: code {rc}")
     launches += 1
+    trace.count("host_syncs.pack_status")
     status = status.cpu()
     need = int(status[1])
     if need > cap:

@@ -9,16 +9,17 @@ launch of K4 (ops/kernels/rd_loop.py), which runs the whole loop a frame a
 block, each frame to its own exit; for CPU tensors its plain version
 `rd_loop_plain`. There the JAX `lax.while_loop`s become Python loops that
 exit early when `.any()` says every frame is done; each such test is a
-host sync, counted in `host_syncs`. Converged frames are fixed points of
-the loop body, so the early exits, the batch's and a frame's own, are
-decision-identical to the spec's fixed bound.
+host sync, counted as `host_syncs.rd_exit` (`trace.counters()`).
+Converged frames are fixed points of the loop body, so the early exits,
+the batch's and a frame's own, are decision-identical to the spec's
+fixed bound.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import config as C
-from .. import xpsy
+from .. import trace, xpsy
 from . import entropy, quantize
 from .kernels import quant_cost
 from .kernels import rd_loop as rd_loop_k
@@ -28,12 +29,10 @@ I32 = torch.int32
 REFINE_WINDOW = 15        # spec/rd.py: candidates [prev, prev + 15] + GAIN_MAX
 REFINE_BLOCK = 4
 N_REFINE_BLOCKS = (REFINE_WINDOW + 1) // REFINE_BLOCK
-host_syncs = 0            # loop-exit tests that read the card, since reset
 
 
 def _sync_any(t) -> bool:
-    global host_syncs
-    host_syncs += 1
+    trace.count("host_syncs.rd_exit")
     return bool(t.any())
 
 

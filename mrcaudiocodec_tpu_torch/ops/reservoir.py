@@ -141,8 +141,9 @@ def budgets_scan(desired, mean_bits: int, cap: int):
     """[..., F] desired -> [..., F] budgets:
     budget[f] = min(desired[f], mean + r[f]) with
     r[f+1] = clip(r[f] + mean - desired[f], 0, cap), r[0] = 0."""
+    r0 = torch.zeros(desired.shape[:-1], dtype=I64, device=desired.device)
     return budgets_from_prefix(desired, local_maps(desired, mean_bits, cap),
-                               0, mean_bits)
+                               r0, mean_bits)
 
 
 def allocate(pe, cfg, nf_row=None):
