@@ -5,7 +5,7 @@
 
 Phases, in order; any failure raises, so the exit code is non-zero:
   1. card: name and power limit (nvidia-smi), CUDA version, capability 9.0
-  2. build: the main path's ten CUDA kernels from csrc/ (nvcc, one
+  2. build: the main path's eleven CUDA kernels from csrc/ (nvcc, one
      process per source started together, -Xptxas -v per kernel); K4's
      blocks resident an SM (the occupancy calculator), at least 7, and
      K8's frames in flight an SM, at least 20 (2 blocks of 10 warps)
@@ -56,7 +56,13 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      batch's 8192) and K5's (k5_locate: the 30 s chunk's 2 rows, its row 0
      alone, the batch chunk) and K10's (k10_locate: the decode's 2048 and
      538 rows, f32 and int16, and the 2048 rows cut to 66 ... 2048), each beside
-     its bound; the SASS instruction mix of K1-K10
+     its bound; K11 pad_rows on its inputs captured at its wrapper from
+     one 30 s encode (one launch) and one 64 x 10 s batch (7 launches):
+     each launch bit for bit == the host pad it replaced
+     (upload_chunk(_padded_rows(...))) and == its plain version, its
+     event ms, device ms and byte bound at the 30 s chunk and the batch's
+     8192-row chunk, its SASS audit (no FFMA, no .FTZ); the SASS
+     instruction mix of K1-K11
   5. goldens g1-g6 encoded on the card (records built by K3) against their
      SHA-256 digests; each decoded on the card and on the CPU, PCM bitwise
      equal
@@ -1801,7 +1807,115 @@ def phase_times(dev, inputs, rd_sets):
     out["psycho"]["locate"] = k8_locate(inputs)
     out["transients"]["locate"] = k5_locate(inputs)
     out["synth_post"]["locate"] = k10_locate(inputs)
+    out["pad_rows"] = k11_hold_and_time(dev)
     log_instruction_mix()
+    return out
+
+
+def k11_bytes(pcm, clips, f0, s) -> int:
+    """K11's bytes on the card: its rows written once, the samples in them
+    read once, the clips' offsets and lengths."""
+    from mrcaudiocodec_tpu_torch import config as C
+    nch, es = pcm.shape[1], pcm.element_size()
+    lo, hi = (f0 - 2) * C.HOP, (f0 + s + 1) * C.HOP
+    read = sum(max(0, min(hi, n) - max(lo, 0)) for _, n in clips.tolist())
+    return (clips.shape[0] * nch * (hi - lo) + read * nch) * es \
+        + clips.numel() * 8
+
+
+def k11_hold_and_time(dev):
+    """K11 on the main path's own inputs, captured at its wrapper: one
+    30 s encode (one chunk) and one 64 x 10 s batch (7 chunks of 128
+    rows). Each launch's rows == upload_chunk(_padded_rows(...)) of the
+    same clips (the host pad it replaced) and == its plain version, bit
+    for bit; then its time at the 30 s chunk (2 rows, 2586 frame rows)
+    and at the batch's first chunk (128 rows, 8192 frame rows) beside its
+    byte bound; and its library's SASS audit."""
+    import torch
+    from mrcaudiocodec_tpu_torch import config as C
+    from mrcaudiocodec_tpu_torch import corpus
+    from mrcaudiocodec_tpu_torch.models import codec, encoder
+    from mrcaudiocodec_tpu_torch.ops.kernels import build, pad_rows
+    from mrcaudiocodec_tpu_torch.probes import fma_probe
+    from mrcaudiocodec_tpu_torch.profiling import (HBM_BYTES_PER_S,
+                                                   device_ms)
+    cfg, xi = full_clip()
+    caps = {"encode": [], "corpus": []}
+    where = ["encode"]
+    orig = pad_rows.pad_rows_kernel
+
+    def rec(*args):
+        caps[where[0]].append(args)    # the PCM is never written again
+        return orig(*args)
+    clips = corpus._synth_corpus(64, 10.0)
+    pad_rows.pad_rows_kernel = rec
+    try:
+        codec.encode(xi, cfg, device=dev)
+        where[0] = "corpus"
+        corpus.encode_batch(clips, cfg, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        pad_rows.pad_rows_kernel = orig
+    nf_batch = corpus.FRAME_BUCKET * -(-C.frames_for_samples(
+        clips[0].shape[0]) // corpus.FRAME_BUCKET)
+    want_launches = {
+        "encode": len(encoder.chunk_spans(C.frames_for_samples(xi.shape[0]),
+                                          cfg.channels)),
+        "corpus": len(encoder.chunk_spans(nf_batch,
+                                          cfg.channels * len(clips)))}
+    out = {"launches": sum(len(c) for c in caps.values()), "by_shape": {}}
+    for key, calls in caps.items():
+        check(len(calls) == want_launches[key],
+              f"{key}: K11 launched {len(calls)} times, not once a chunk "
+              f"({want_launches[key]})")
+        pcm_h = calls[0][0].cpu().numpy()
+        tab = calls[0][1].cpu().tolist()
+        arrs = [pcm_h[o:o + n] for o, n in tab]
+        nf = max(max(f0 + s for _, _, f0, s in calls),
+                 max(C.frames_for_samples(n) for _, n in tab))
+        P = np.concatenate([encoder._padded_rows(a, nf) for a in arrs])
+        for pcm, clips, f0, s in calls:
+            got = pad_rows.pad_rows_kernel(pcm, clips, f0, s)
+            plain = pad_rows.pad_rows_plain(pcm, clips, f0, s)
+            torch.cuda.synchronize()
+            ok = (bits_equal(got, encoder.upload_chunk(P, f0, s, "cpu"))
+                  and bits_equal(got, plain))
+            log(f"[kernels] pad_rows on the {key} path's own input (f0 "
+                f"{f0}, s {s}, {clips.shape[0]} clips, {pcm.dtype}): "
+                f"kernel == host pad == plain bitwise: {ok}")
+            check(ok, f"pad_rows {key} f0={f0} s={s} differs from the host "
+                  f"pad or its plain version")
+        pcm, clips, f0, s = calls[0]
+        run = (lambda a=calls[0]: pad_rows.pad_rows_kernel(*a))
+        nbytes = k11_bytes(pcm, clips, f0, s)
+        line = dict(ms=cuda_ms(run, 50), device_ms=device_ms(
+                        run, 20, match="pad_rows_kernel"),
+                    plain_ms=cuda_ms(lambda a=calls[0]:
+                                     pad_rows.pad_rows_plain(*a), 5,
+                                     warmup=1),
+                    bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                    bound_by="bytes", bytes=nbytes)
+        rows = clips.shape[0] * pcm.shape[1] * s
+        out["by_shape"][f"{key} ({rows},)"] = line
+        ratio = (line["device_ms"] / line["bound_ms"]
+                 if line["device_ms"] else None)
+        log(f"[times] pad_rows at the {key} chunk ({rows} frame rows, "
+            f"{nbytes} B): event {line['ms']:.4f} ms, device "
+            f"{line['device_ms']} ms, plain {line['plain_ms']:.4f} ms, "
+            f"bound {line['bound_ms']:.5f} ms (bytes); device over bound "
+            f"{ratio}")
+    first = out["by_shape"][next(iter(out["by_shape"]))]
+    out.update({k: first[k] for k in ("ms", "device_ms", "plain_ms",
+                                      "bound_ms", "bound_by")},
+               library_ms=None)
+    audit = fma_probe.sass_counts(subprocess.run(
+        [fma_probe.cuobjdump(), "-sass", build._so("pad_rows")],
+        capture_output=True, text=True, timeout=120, check=True).stdout)
+    ffma = sum(f["FFMA"] for f in audit.values())
+    ftz = sum(f["FTZ"] for f in audit.values())
+    log(f"[kernels] SASS audit libpad_rows.so: {ffma} FFMA, {ftz} .FTZ in "
+        f"{len(audit)} kernels")
+    check(ffma == 0 and ftz == 0, "libpad_rows.so holds FFMA or .FTZ")
     return out
 
 
@@ -1820,7 +1934,7 @@ MIX_CLASSES = {
 
 
 def log_instruction_mix():
-    """Each K1-K10 kernel's SASS instructions (cuobjdump -sass), by
+    """Each K1-K11 kernel's SASS instructions (cuobjdump -sass), by
     class: the static counts the device times are read against (K1's
     kernels are straight-line code, K2's gain loop is unrolled over a
     lane's 8 tuples, 32 bins, K3's over a lane's 16 pairs, twice; K4
@@ -2685,7 +2799,13 @@ def main() -> int:
                        "ops/dsp.py:274-291, native/xmath_ffi.cpp mode 2 "
                        "after the FFT, overlap-add, int16; native/"
                        "xpsy_ffi.cpp mode 5 feeds it; no pallas_call)"),
+        "pad_rows": ("cuda", "mrcaudiocodec_tpu_torch/csrc/pad_rows.cu",
+                     "none: the host pad, mrcaudiocodec_tpu/models/"
+                     "encoder.py:181 (_padded_rows, numpy; no "
+                     "pallas_call)"),
     }
+    launches["pad_rows"] = times["pad_rows"].pop("launches")
+    errs["pad_rows"] = 0.0
     kernels = []
     for name, (route, source, replaces) in meta.items():
         kernels.append({"name": name, "route": route, "source": source,

@@ -31,7 +31,6 @@ import torch
 import torch.distributed as dist
 
 from . import audiofile
-from . import config as C
 from . import trace
 from .config import CodecConfig, frames_for_samples
 from .models import encoder
@@ -84,53 +83,48 @@ def _on_device(dev: torch.device):
             else contextlib.nullcontext())
 
 
-def _pad_batch(arrs: list[np.ndarray], nf: int) -> np.ndarray:
-    """Same-shape clips [n_i, nch] -> their padded rows [clips * nch,
-    (nf + 6) * HOP]: clip i's channels are rows i*nch .. i*nch + nch - 1,
-    its samples from 2 * HOP on, silence elsewhere."""
-    nch = arrs[0].shape[1]
-    with trace.span("mrc.pad"):
-        P = np.zeros((len(arrs) * nch, (nf + 6) * C.HOP), arrs[0].dtype)
-        for i, a in enumerate(arrs):
-            P[i * nch:(i + 1) * nch, 2 * C.HOP:2 * C.HOP + a.shape[0]] = a.T
-        return P
+def _pad_batch(arrs: list[np.ndarray], out):
+    """A batch's clips [n_i, nch] -> copied back to back into `out`, their
+    view of the staging buffer (`encoder.stage_pcm`): the batch's host work
+    before the copy up, under the name its benchmark metric reads."""
+    return encoder.stage_pcm(arrs, out)
 
 
 def _encode_batch_fused(arrs: list[np.ndarray], cfg: CodecConfig,
                         devices: list) -> list[bytes]:
     """Same-channel-count, same-dtype clips -> batches of rows, one
     contiguous block of whole clips a device (mrcaudiocodec_tpu/corpus.py
-    :94-113 shards the rows over the local devices), each encoded under
-    its device in a host thread of its own, so one device's host work
-    overlaps another's kernels. Each row is tail-padded with silence to a shared
-    frame count (a FRAME_BUCKET multiple); each row's true frame count
-    goes to the reservoir, the only whole-clip quantity, so pad frames
-    change no byte, and stream order leaves them out of every body. int16
-    sources stay int16 through the upload."""
+    :94-113 shards the rows over the local devices), each uploaded and
+    encoded under its device in a host thread of its own, so one device's
+    host work overlaps another's kernels. Each row is tail-padded on the
+    device with silence to a shared frame count (a FRAME_BUCKET multiple);
+    each row's true frame count goes to the reservoir, the only whole-clip
+    quantity, so pad frames change no byte, and stream order leaves them
+    out of every body. int16 sources stay int16 through the upload."""
     nch = arrs[0].shape[1]
     n_list = [a.shape[0] for a in arrs]
     nf_list = [frames_for_samples(n) for n in n_list]
     nf = -(-max(nf_list) // FRAME_BUCKET) * FRAME_BUCKET
-    P = _pad_batch(arrs, nf)
     nf_row = np.repeat(nf_list, nch)
+    with trace.span("mrc.assemble"):
+        heads = [encoder.header(cfg, f, n) for f, n in zip(nf_list, n_list)]
     per = -(-len(arrs) // min(len(devices), len(arrs)))    # clips a block
-    blocks = [(encoder.device_for(devices[i]),
-               slice(k * nch, min(k + per, len(arrs)) * nch))
+    blocks = [(encoder.device_for(devices[i]), slice(k, k + per))
               for i, k in enumerate(range(0, len(arrs), per))]
 
     def run(block):
-        dev, rows = block
+        dev, clips = block
         with _on_device(dev):
-            return encoder.encode_rows(P[rows], nf_row[rows], cfg, dev)
+            pcm = encoder.upload_pcm(arrs[clips], dev, _pad_batch)
+            return encoder.encode_rows(
+                pcm, nf, nf_row[clips.start * nch:clips.stop * nch], cfg,
+                heads[clips])
 
     if len(blocks) == 1:
-        bodies = run(blocks[0])
-    else:                   # one host thread a block: the devices overlap
-        with concurrent.futures.ThreadPoolExecutor(len(blocks)) as pool:
-            bodies = [b for got in pool.map(run, blocks) for b in got]
-    with trace.span("mrc.assemble"):
-        return [encoder.header(cfg, nf_list[i], n_list[i]) + bodies[i]
-                for i in range(len(arrs))]
+        return run(blocks[0])
+    # one host thread a block: the devices overlap
+    with concurrent.futures.ThreadPoolExecutor(len(blocks)) as pool:
+        return [s for got in pool.map(run, blocks) for s in got]
 
 
 def run_corpus(paths: list[str], outdir: str, cfg_base: dict,

@@ -1,7 +1,10 @@
 """Encoder pipeline: device stages, record bytes built on the device.
 
-  host:   pad the PCM into one row per channel (numpy); the corpus path
-          gives one row per channel of every clip
+  host:   each clip's PCM as it is, copied once into a reused staging
+          buffer (page-locked for a card, a host core a piece) and
+          uploaded from it in one copy (`upload_pcm`)
+  device: per chunk of frames, its padded rows, one per channel of every
+          clip (K11, ops/kernels/pad_rows.py)
   device: per chunk of frames, all rows batched: int16 -> f32, framing
           with true neighbour transients across chunk edges, block types,
           MDCT, psycho (on the card the kernels K5-K8 around K1, which
@@ -13,14 +16,15 @@
           in stream order: (frame, channel) within each clip, the corpus
           batch's pad frames left out
   host:   per chunk one download of that stream body and the records'
-          lengths; each clip's stream is its header and the join over
-          chunks of its slice of the body
+          lengths; each clip's stream is one join of its header and its
+          slice of each chunk's body
 
 Entry point: `encode(x, cfg, device="cuda")`. It runs on the card unless
 the caller passes device="cpu"; without CUDA it raises, never falling
 back to the CPU. `encode_arrays` + `models/packing.pack_stream` (the
-decisions downloaded and packed on the host) are kept as the oracle the
-tests compare against.
+decisions downloaded and packed on the host, the rows padded on the host
+by `_padded_rows` and uploaded a chunk at a time by `upload_chunk`) are
+kept as the oracle the tests compare against.
 
 Each stage above is a span of `trace` (`mrc.pad`, `mrc.upload`,
 `mrc.analyze`, ...), recorded only while tracing is on; `trace.counters()`
@@ -34,6 +38,12 @@ the bytes do not depend on it.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import functools
+import os
+import threading
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -42,9 +52,14 @@ from .. import trace
 from ..bitstream import write_header
 from ..config import CodecConfig
 from ..ops import device_pack, dsp, entropy, psycho, rd, reservoir
+from ..ops.kernels import pad_rows
 from ..utils.bits import BitWriter
 
 ENC_ROW_FRAMES = 8192               # rows x frames per device chunk
+# bytes of PCM a host thread stages at least: below it the hand-off to a
+# thread costs more than it saves (the 30 s stereo clip, 5.3 MB, stages in
+# the calling thread; the 64-clip batch, 113 MB, on every core)
+STAGE_PIECE_BYTES = 8 << 20
 
 
 def device_for(device) -> torch.device:
@@ -129,6 +144,113 @@ def chunk_spans(nf: int, rows: int = 1):
 def upload_chunk(P: np.ndarray, f0: int, s: int, dev):
     """The padded rows covering frames [f0-1, f0+s+1), on `dev`."""
     return trace.upload(P[:, f0 * C.HOP:(f0 + s + 3) * C.HOP], dev)
+
+
+class PCM(NamedTuple):
+    """Clips' samples on a device, as `upload_pcm` leaves them."""
+    data: torch.Tensor      # [sum n_j, nch] int16 or float32, back to back
+    clips: torch.Tensor     # int64 [J, 2]: clip j's first sample, length
+
+
+class _Staging:
+    """A device's staging buffer: host memory (page-locked for a card)
+    kept from request to request, the lock of the thread that fills it,
+    and an event recorded after the last copy up out of it (None until a
+    card's first)."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.buf = None
+        self.done = None
+
+
+_staging: dict[tuple, _Staging] = {}
+_staging_lock = threading.Lock()
+
+
+def _staging_for(dev: torch.device) -> _Staging:
+    """The staging buffer of `dev` ("cuda" is the current card)."""
+    index = dev.index
+    if dev.type == "cuda" and index is None:
+        index = torch.cuda.current_device()
+    with _staging_lock:
+        return _staging.setdefault((dev.type, index), _Staging())
+
+
+def _copy_rows(dst: np.ndarray, arrs, at, lo: int, hi: int) -> None:
+    """Rows [lo, hi) of the clips laid back to back (clip j's first row at
+    at[j]) -> the same rows of dst."""
+    for j, a in enumerate(arrs):
+        a0, a1 = max(lo, at[j]), min(hi, at[j + 1])
+        if a0 < a1:
+            np.copyto(dst[a0:a1], a[a0 - at[j]:a1 - at[j]])
+
+
+def stage_pcm(arrs: list[np.ndarray], out: torch.Tensor) -> torch.Tensor:
+    """Clips [n_j, nch] -> copied back to back, as they are, into `out`
+    [sum n_j, nch], a view of the staging buffer; returns `out`. Rows are
+    cut into pieces of STAGE_PIECE_BYTES at least, at most one a host
+    core, copied side by side (numpy lets go of the interpreter lock while
+    it copies); a single piece is copied by the calling thread."""
+    with trace.span("mrc.pad"):
+        dst = out.numpy()
+        at = np.concatenate([[0], np.cumsum([a.shape[0] for a in arrs])])
+        total = int(at[-1])
+        pool, threads = _copy_pool()
+        row_bytes = max(dst.itemsize * dst.shape[1], 1)
+        step = max(-(-total // threads), STAGE_PIECE_BYTES // row_bytes)
+        if step >= total:
+            _copy_rows(dst, arrs, at, 0, total)
+        else:
+            list(pool.map(
+                lambda lo: _copy_rows(dst, arrs, at, lo, lo + step),
+                range(0, total, step)))
+        return out
+
+
+@functools.lru_cache(maxsize=1)
+def _copy_pool():
+    """(the host threads that stage PCM, one a core this process may run
+    on; their count)."""
+    threads = len(os.sched_getaffinity(0))
+    return concurrent.futures.ThreadPoolExecutor(threads), threads
+
+
+# a forked child has none of its parent's threads: it makes its own pool
+os.register_at_fork(after_in_child=_copy_pool.cache_clear)
+
+
+def upload_pcm(arrs: list[np.ndarray], dev, stage=None) -> PCM:
+    """Clips [n_j, nch] of one dtype, int16 or float32 -> their samples
+    on `dev`, each copied once on the host and once up: staged by `stage`
+    (default `stage_pcm`) into the device's staging buffer, then copied up
+    from it without waiting. The buffer is allocated once a device
+    (`staging.grow`) and grows only for a request larger than any before
+    it; a thread waits for the last copy up out of it before it fills it
+    again."""
+    stage = stage or stage_pcm
+    dev = torch.device(dev)
+    nch = arrs[0].shape[1]
+    dtype = torch.int16 if arrs[0].dtype == np.int16 else torch.float32
+    lens = [a.shape[0] for a in arrs]
+    need = sum(lens) * nch * dtype.itemsize
+    st = _staging_for(dev)
+    with st.lock:
+        if st.done is not None:
+            st.done.synchronize()
+        if st.buf is None or st.buf.numel() < need:
+            st.buf = None                   # the old one goes first
+            st.buf = torch.empty(max(need, 1), dtype=torch.uint8,
+                                 pin_memory=dev.type == "cuda")
+            trace.count("staging.grow")
+        view = st.buf[:need].view(dtype).view(-1, nch)
+        data = trace.upload(stage(arrs, view), dev)
+        if dev.type == "cuda":
+            st.done = st.done or torch.cuda.Event()
+            st.done.record(torch.cuda.current_stream(dev))
+    at = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    clips = trace.upload(np.stack([at, lens], 1).astype(np.int64), dev)
+    return PCM(data, clips)
 
 
 def decide_chunk(chunk, budgets, cfg: CodecConfig):
@@ -226,23 +348,26 @@ def download_body(packed):
                 nbytes.cpu().numpy().astype(np.int64))
 
 
-def clip_slices(body, nbytes, counts) -> list[bytes]:
-    """A chunk's host body -> each clip's slice of it, from the records'
-    lengths and the records of each clip (stream_order)."""
+def clip_slices(body, nbytes, counts) -> list[memoryview]:
+    """A chunk's host body -> each clip's slice of it (a view, no copy),
+    from the records' lengths and the records of each clip
+    (stream_order)."""
     with trace.span("mrc.assemble"):
         ends = np.concatenate([[0], np.cumsum(nbytes)])
         at = ends[np.concatenate([[0], np.cumsum(counts)])]
-        return [body[a:b].tobytes() for a, b in zip(at[:-1], at[1:])]
+        view = memoryview(body)
+        return [view[a:b] for a, b in zip(at[:-1], at[1:])]
 
 
 def encode_chunks(audio, orders, spans, nf_row, cfg: CodecConfig, cap: int):
     """The device stages of an encode. audio: each chunk of `spans` on the
-    device (`upload_chunk`), orders: each chunk's stream order on the
-    device (`stream_order`), both iterables read in chunk order -> each
-    chunk's packed (body, nbytes, status), yielded in turn: every chunk
-    analysed, the budgets of each whole row (`reservoir.allocate`), then
-    per chunk the RD loop and codebooks (`decide_chunk`, K2) and the
-    record pack (`pack_chunk`, K3, which reads its 8-byte status)."""
+    device (K11's `pad_rows.pad_rows`, or `upload_chunk`), orders: each
+    chunk's stream order on the device (`stream_order`), both iterables
+    read in chunk order -> each chunk's packed (body, nbytes, status),
+    yielded in turn: every chunk analysed, the budgets of each whole row
+    (`reservoir.allocate`), then per chunk the RD loop and codebooks
+    (`decide_chunk`, K2) and the record pack (`pack_chunk`, K3, which
+    reads its 8-byte status)."""
     chunks = [_analyze_chunk(a, cfg) for a in audio]
     budgets = _budgets(chunks, cfg, nf_row)
     for ch, (f0, s), order in zip(chunks, spans, orders):
@@ -250,29 +375,34 @@ def encode_chunks(audio, orders, spans, nf_row, cfg: CodecConfig, cap: int):
                          cfg, cap)
 
 
-def encode_rows(P: np.ndarray, nf_row, cfg: CodecConfig, dev):
-    """Padded rows [R, plen] (`_padded_rows` layout; int16 or float32) and
-    each row's true frame count (None: all of them) -> each clip's stream
-    body (bytes, the header not included), built on `dev`. Clip j holds
-    rows j*nch .. j*nch + nch - 1, nch = cfg.channels. Each chunk is
-    uploaded just before its analysis, and its body downloaded before the
-    next chunk is packed."""
+def encode_rows(pcm: PCM, nf: int, nf_row, cfg: CodecConfig,
+                headers: list[bytes]) -> list[bytes]:
+    """The clips' samples on a device (`upload_pcm`; int16 or float32),
+    the frames of every row (nf, at least each clip's), each row's true
+    frame count (None: all nf) and each clip's header -> each clip's
+    stream, its body built on the samples' device. Clip j holds rows
+    j*nch .. j*nch + nch - 1, nch = cfg.channels. Each chunk's padded rows
+    are built on the device (K11) just before its analysis, and its body
+    downloaded before the next chunk is packed; a clip's stream is one
+    join of its header and its slices of the chunks' bodies."""
     nch = cfg.channels
-    spans = chunk_spans(P.shape[1] // C.HOP - 6, P.shape[0])
+    dev = pcm.data.device
+    rows = pcm.clips.shape[0] * nch
+    spans = chunk_spans(nf, rows)
     with trace.span("mrc.order"):
-        orders = [stream_order(nf_row, nch, f0, s, P.shape[0])
-                  for f0, s in spans]
+        orders = [stream_order(nf_row, nch, f0, s, rows) for f0, s in spans]
     nf_dev = None if nf_row is None else trace.upload(
         np.asarray(nf_row, np.int64), dev)
-    packed = encode_chunks((upload_chunk(P, f0, s, dev) for f0, s in spans),
-                           (trace.upload(o, dev) for o, _ in orders),
-                           spans, nf_dev, cfg, device_pack.pack_cap_bytes(cfg))
-    pieces = [[] for _ in range(P.shape[0] // nch)]
+    packed = encode_chunks(
+        (pad_rows.pad_rows(pcm.data, pcm.clips, f0, s) for f0, s in spans),
+        (trace.upload(o, dev) for o, _ in orders),
+        spans, nf_dev, cfg, device_pack.pack_cap_bytes(cfg))
+    pieces = [[] for _ in range(rows // nch)]
     for p, (_, counts) in zip(packed, orders):
         for j, piece in enumerate(clip_slices(*download_body(p), counts)):
             pieces[j].append(piece)
     with trace.span("mrc.assemble"):
-        return [b"".join(p) for p in pieces]
+        return [b"".join([h, *p]) for h, p in zip(headers, pieces)]
 
 
 def header(cfg: CodecConfig, nf: int, n_samples: int) -> bytes:
@@ -297,7 +427,8 @@ def encode(x: np.ndarray, cfg: CodecConfig, device="cuda") -> bytes:
                 f"config expects {cfg.channels} channels, got {x.shape[1]}")
         dev = device_for(device)
         nf = C.frames_for_samples(x.shape[0])
-        body, = encode_rows(_padded_rows(x, nf), None, cfg, dev)
         with trace.span("mrc.assemble"):
-            return header(cfg, nf, x.shape[0]) + body
+            head = header(cfg, nf, x.shape[0])
+        stream, = encode_rows(upload_pcm([x], dev), nf, None, cfg, [head])
+        return stream
 

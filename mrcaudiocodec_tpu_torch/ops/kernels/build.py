@@ -36,7 +36,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 MAIN = ("fft_stages", "quant_cost", "record_pack", "rd_loop", "transients",
-        "analysis_pre", "mdct_post", "psycho", "synth_pre", "synth_post")
+        "analysis_pre", "mdct_post", "psycho", "synth_pre", "synth_post",
+        "pad_rows")
 PROBES = ("probe_fma", "probe_quant_g32", "probe_quant_bisect",
           "probe_primitives", "probe_fma_contract")
 SOURCES = MAIN + PROBES

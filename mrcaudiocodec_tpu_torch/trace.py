@@ -12,10 +12,13 @@ per-band loop):
 
     mrc.encode        a clip request (`models.encoder.encode`)
     mrc.encode_batch  a batch request (`corpus.encode_batch`)
-    mrc.pad           the PCM padded into rows
+    mrc.pad           the PCM staged for the device (`encoder.stage_pcm`:
+                      the clips copied into the staging buffer), or, on
+                      the oracle's path, padded into rows
     mrc.order         the chunks' stream orders
-    mrc.upload        a host array handed to the device (`upload`): an
-                      audio chunk, a stream order, the rows' frame counts
+    mrc.upload        a host array handed to the device (`upload`): the
+                      staged PCM, the clips' offsets and lengths, a
+                      stream order, the rows' frame counts
     mrc.analyze       a chunk's analysis (`_analyze_chunk`)
     mrc.budget        the PE join and the bit-reservoir scan
     mrc.decide        a chunk's RD loop and codebooks (`decide_chunk`)
@@ -37,6 +40,14 @@ Counters are plain integers, always on, read by `counters()`:
     bytes_up                bytes handed to the device by `upload`, whatever
                             the device: every host-to-device copy of the
                             encode path goes through it
+    staging.bytes_up        of those, the bytes copied up from the staging
+                            buffer (`encoder.upload_pcm`: page-locked for a
+                            card, plain host memory for the CPU); not named
+                            bytes_up_*, which a reader of `bytes_up` by
+                            prefix would add in
+    staging.grow            allocations of a device's staging buffer: one
+                            a device, and another only when a request is
+                            larger than any before it
 """
 from __future__ import annotations
 
@@ -78,10 +89,25 @@ def counters() -> dict:
         return dict(_counts)
 
 
-def upload(a: np.ndarray, dev):
+def upload(a, dev):
     """A host array -> a tensor on `dev`, as the span `mrc.upload`, its
-    bytes counted in `bytes_up`."""
+    bytes counted in `bytes_up`.
+
+    A numpy array is copied into page-locked memory first when `dev` is a
+    card, so the copy up neither waits for the card's queue nor holds the
+    host. A tensor is a view of the staging buffer (`encoder.upload_pcm`,
+    page-locked for a card): it is copied into a new tensor on `dev`
+    without waiting, its bytes counted in `staging.bytes_up` too; the
+    caller keeps the buffer unchanged until the copy is done."""
     with span("mrc.upload"):
+        if isinstance(a, torch.Tensor):
+            count("bytes_up", a.nbytes)
+            count("staging.bytes_up", a.nbytes)
+            out = torch.empty(a.shape, dtype=a.dtype, device=dev)
+            return out.copy_(a, non_blocking=True)
         a = np.ascontiguousarray(a)
         count("bytes_up", a.nbytes)
-        return torch.from_numpy(a).to(dev)
+        t = torch.from_numpy(a)
+        if torch.device(dev).type == "cuda":
+            t = t.pin_memory()
+        return t.to(dev, non_blocking=True)

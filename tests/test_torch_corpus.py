@@ -61,11 +61,13 @@ def test_fused_mixed_lengths_equal_per_clip_and_spec(monkeypatch):
     clips = _mixed_lengths()
     calls = []
     rows = encoder.encode_rows
-    monkeypatch.setattr(encoder, "encode_rows",
-                        lambda P, *a: calls.append(P.shape) or rows(P, *a))
+    monkeypatch.setattr(
+        encoder, "encode_rows",
+        lambda pcm, nf, *a: calls.append((pcm.clips.shape[0], nf))
+        or rows(pcm, nf, *a))
     out = corpus.encode_batch(clips, CFG, device="cpu")
-    assert len(calls) == 1 and calls[0][0] == 10     # one batch, 10 rows
-    assert calls[0][1] == (32 + 6) * 1024            # one bucket
+    assert len(calls) == 1 and calls[0][0] == 5      # one batch, 10 rows
+    assert calls[0][1] == 32                         # one bucket
     monkeypatch.setattr(encoder, "encode_rows", rows)
     jcfg = JCfg(fs=44100, channels=2, bitrate=128000)
     for i, x in enumerate(clips):

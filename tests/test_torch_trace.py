@@ -31,7 +31,7 @@ STAGES = {"mrc.analyze", "mrc.budget", "mrc.decide", "mrc.pack",
 ENTRY = {"mrc.pad", "mrc.order", "mrc.upload", "mrc.assemble"}
 NEW = ["entry_pad_host_ms", "entry_upload_host_ms", "upload_mb",
        "idle_entry_ms", "idle_stages_ms", "idle_outside_ms", "host_syncs",
-       "launches"]
+       "launches", "upload_pinned_mb"]
 CELLS = {"clip30s.encode": "clip", "corpus64.encode": "corpus"}
 
 
@@ -110,8 +110,9 @@ def test_stage_spans_are_siblings_under_the_top_span(make, top):
     assert len(spans["mrc.analyze"]) == len(spans["mrc.pack"]) == chunks
     assert len(spans["mrc.download"]) == chunks
     assert len(spans["mrc.budget"]) == 1
-    # audio and order a chunk; a batch also sends its rows' frame counts
-    assert len(spans["mrc.upload"]) == 2 * chunks + (top != "mrc.encode")
+    # the staged PCM and the clips' offsets and lengths, an order a chunk;
+    # a batch also sends its rows' frame counts
+    assert len(spans["mrc.upload"]) == 2 + chunks + (top != "mrc.encode")
     # the entry's spans lie between the stages, never inside one
     for n in ENTRY:
         for s, e, _ in spans[n]:
@@ -121,11 +122,10 @@ def test_stage_spans_are_siblings_under_the_top_span(make, top):
 def test_counters_count_bytes_up_and_blocking_reads(monkeypatch):
     x = clip(0.4)
     nf = C.frames_for_samples(x.shape[0])
-    P = encoder._padded_rows(x, nf)
     spans = encoder.chunk_spans(nf, CFG.channels)
-    want_up = sum(np.ascontiguousarray(
-        P[:, f0 * C.HOP:(f0 + s + 3) * C.HOP]).nbytes
-        + encoder.stream_order(None, CFG.channels, f0, s, CFG.channels)[
+    # the PCM once, the clip's offset and length, an order a chunk
+    want_up = x.nbytes + 16 + sum(
+        encoder.stream_order(None, CFG.channels, f0, s, CFG.channels)[
             0].nbytes for f0, s in spans)
     exits = [0]
     orig = rd._sync_any
@@ -139,6 +139,7 @@ def test_counters_count_bytes_up_and_blocking_reads(monkeypatch):
     got = {k: v - before.get(k, 0) for k, v in trace.counters().items()}
     assert got["requests.encode"] == 1
     assert got["bytes_up"] == want_up
+    assert got["staging.bytes_up"] == x.nbytes
     assert got["host_syncs.download"] == 2 * len(spans)
     assert exits[0] > 0 and got["host_syncs.rd_exit"] == exits[0]
     # the plain pack on the CPU reads no status from a device
@@ -153,15 +154,14 @@ def test_counters_of_a_batch_count_every_chunk():
     assert got.get("requests.encode", 0) == 0
     assert got["host_syncs.download"] == 2 * chunks
     rows = 3 * CFG.channels
-    nf = -(-C.frames_for_samples(int(FS * 0.4)) // corpus.FRAME_BUCKET) \
-        * corpus.FRAME_BUCKET
-    # the audio: every chunk's rows of int16 with their 3 outer hops; the
-    # orders: one int32 a real record; the rows' frame counts: an int64 a
-    # row
-    audio = sum(rows * (s + 3) * C.HOP * 2
-                for _, s in encoder.chunk_spans(nf, rows))
+    # the audio: every clip's int16 samples once; the clips' offsets and
+    # lengths: two int64 a clip; the orders: one int32 a real record; the
+    # rows' frame counts: an int64 a row
+    audio = sum(int(FS * d) * CFG.channels * 2 for d in (0.4, 0.15, 0.3))
     records = sum(C.frames_for_samples(int(FS * d)) for d in (0.4, 0.15, 0.3))
-    assert got["bytes_up"] == audio + 4 * records * CFG.channels + 8 * rows
+    assert got["bytes_up"] == (audio + 16 * 3 + 4 * records * CFG.channels
+                               + 8 * rows)
+    assert got["staging.bytes_up"] == audio
 
 
 # -- the readers on a hand-built trace ----------------------------------------
@@ -313,11 +313,14 @@ def test_a_traced_rehearsal_reports_the_new_metrics(cell, monkeypatch):
                               overrides=over, workers=2)
     assert res["correct"]
     short = CELLS[cell]
-    # on the CPU the idle split and the launches find no card to read
+    # on the CPU the idle split and the launches find no card to read; the
+    # clip's main path pads nothing on the host (`_padded_rows` is the
+    # oracle's), so its pad metric finds no call
     new = {k.split(".", 1)[1] for k in res["metrics"]
            if k.split(".", 1)[1] in NEW}
-    assert new == {"entry_pad_host_ms", "entry_upload_host_ms", "upload_mb",
-                   "host_syncs"}
+    assert new == {"entry_upload_host_ms", "upload_mb", "host_syncs",
+                   "upload_pinned_mb"} | (
+                       {"entry_pad_host_ms"} if short == "corpus" else set())
     assert f"{short}.entry_self_ms" in res["metrics"]
     assert trace.span("mrc.a") is trace.span("mrc.b")  # the port's: off
     got = trace.counters()
@@ -327,6 +330,8 @@ def test_a_traced_rehearsal_reports_the_new_metrics(cell, monkeypatch):
     assert res["metrics"][f"{short}.host_syncs"]["value"] == syncs / per
     assert res["metrics"][f"{short}.upload_mb"]["value"] == pytest.approx(
         got["bytes_up"] / per / 1e6)
+    assert res["metrics"][f"{short}.upload_pinned_mb"][
+        "value"] == pytest.approx(got["staging.bytes_up"] / per / 1e6)
     # the stage calls lie inside the top calls and never overlap: what
     # makes the idle split whole on the card
     t, = kept
