@@ -5,7 +5,7 @@
 
 Phases, in order; any failure raises, so the exit code is non-zero:
   1. card: name and power limit (nvidia-smi), CUDA version, capability 9.0
-  2. build: the main path's eleven CUDA kernels from csrc/ (nvcc, one
+  2. build: the main path's twelve CUDA kernels from csrc/ (nvcc, one
      process per source started together, -Xptxas -v per kernel); K4's
      blocks resident an SM (the occupancy calculator), at least 7, and
      K8's frames in flight an SM, at least 20 (2 blocks of 10 warps)
@@ -41,7 +41,10 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      1, 2 and 3 rows, f32 and int16 PCM, with prev null, the previous
      slab's tail and a tail of +-0, +-inf and NaN (hold_k10), each
      stream's card decode == its CPU decode; K9 and K10 also on the 30 s
-     decode's own inputs (2048 and 538 frame rows, K10 the same ways)
+     decode's own inputs (2048 and 538 frame rows, K10 the same ways);
+     K12 budget_scan at 1 .. 12920 frames x 1, 2, 128 rows, PE of music,
+     zeros and edges, row frame counts none / all / mixed / 1, two rates,
+     each one launch with no synchronize, against its plain version
   4. on those captured inputs, each kernel's time (CUDA events, and the
      profiler's device time per launch) beside its plain version's, one
      PyTorch library call where one exists (torch.fft.fft for K1) and the
@@ -61,8 +64,13 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      each launch bit for bit == the host pad it replaced
      (upload_chunk(_padded_rows(...))) and == its plain version, its
      event ms, device ms and byte bound at the 30 s chunk and the batch's
-     8192-row chunk, its SASS audit (no FFMA, no .FTZ); the SASS
-     instruction mix of K1-K11
+     8192-row chunk, its SASS audit (no FFMA, no .FTZ); K12 budget_scan on
+     its inputs captured at its wrapper from one 30 s encode ([2, 1293])
+     and one 64 x 10 s batch ([128, 448]) and on the clip's PE tiled to
+     [2, 12920]: == its plain version and the torch scan it replaced, its
+     event, device and host ms beside the torch scan's (and its launches
+     a call) and its byte bound, its SASS audit; the SASS instruction mix
+     of K1-K12
   5. goldens g1-g6 encoded on the card (records built by K3) against their
      SHA-256 digests; each decoded on the card and on the CPU, PCM bitwise
      equal
@@ -529,7 +537,82 @@ def phase_kernels(dev):
                 f"previous chunk's, +-0 / inf / NaN)")
             before = (args[:4], args[4])
     rd_sets = phase_kernels_rd_loop(dev, inputs, err)
+    k12_hold(dev)
     return err, inputs, rd_sets
+
+
+K12_FRAMES = (1, 31, 32, 33, 448, 1293, 12920)
+K12_ROWS = (1, 2, 128)
+
+
+def k12_pe(kind, rows, frames, rng):
+    """[rows, frames] float32 PE on the host: music (quiet stretches that
+    fill the reservoir, loud bursts that drain it), zeros, or music with
+    edges (below 0, -0, subnormal, just under and at 1 and 65535, above
+    65535, +-inf) and row 0 all zero."""
+    import torch
+    if kind == "zeros":
+        return torch.zeros((rows, frames), dtype=torch.float32)
+    f = np.arange(frames)
+    pe = np.where((f // 15) % 3 == 2, rng.uniform(3000, 9000, (rows, frames)),
+                  rng.uniform(0, 300, (rows, frames))).astype(np.float32)
+    if kind == "edges":
+        one, big = np.float32(1), np.float32(65535)
+        special = np.array([-5.0, -0.0, 1e-42, np.nextafter(one, 0), 1.0,
+                            np.nextafter(big, 0), 65535.0, 65536.5, 1e9,
+                            np.inf, 123.75, -np.inf], np.float32)
+        pe[:, ::3] = special[(f[::3] // 3) % special.size]
+        pe[0] = 0.0
+    return torch.from_numpy(pe)
+
+
+def k12_hold(dev):
+    """K12 against its plain version, bit for bit (phase 3): 1 .. 12920
+    frames x 1, 2, 128 rows x music / zeros / edges PE x row frame counts
+    none / all / mixed / 1 x the 30 s clip's rate and one so low that lo
+    is 0, each one launch with no synchronize (the sync debug mode raises
+    on one) against the plain version on the CPU."""
+    import torch
+    from mrcaudiocodec_tpu_torch.ops import reservoir
+    from mrcaudiocodec_tpu_torch.ops.kernels import budget_scan
+    cfg, _ = full_clip()
+    mb = int(cfg.mean_frame_bits)
+    rates = [(mb, cfg.reservoir_cap), (3, 18)]
+    rng = np.random.default_rng(2026)
+    n = 0
+    for frames in K12_FRAMES:
+        for rows in K12_ROWS:
+            for kind in ("music", "zeros", "edges"):
+                pe = k12_pe(kind, rows, frames, rng)
+                nfs = [None, torch.full((rows,), frames),
+                       torch.from_numpy(rng.integers(1, frames + 1, rows)),
+                       torch.ones(rows, dtype=torch.int64)]
+                for nf in nfs:
+                    for mean_bits, cap in rates:
+                        args = (mean_bits, *reservoir.desired_bounds(
+                            mean_bits), cap)
+                        pe_d = pe.to(dev)
+                        nf_d = None if nf is None else nf.to(dev)
+                        torch.cuda.synchronize()
+                        before = budget_scan.launches
+                        torch.cuda.set_sync_debug_mode("error")
+                        try:
+                            got = budget_scan.budget_scan_kernel(
+                                pe_d, nf_d, *args)
+                        finally:
+                            torch.cuda.set_sync_debug_mode("default")
+                        want = budget_scan.budget_scan_plain(pe, nf, *args)
+                        ok = (budget_scan.launches == before + 1
+                              and bits_equal(got, want))
+                        check(ok, f"budget_scan [{rows}, {frames}] {kind} "
+                              f"nf {None if nf is None else nf[:4].tolist()}"
+                              f" mean_bits {mean_bits}: not one launch, or "
+                              f"differs from its plain version")
+                        n += 1
+    log(f"[kernels] budget_scan: kernel == plain bitwise, one launch and "
+        f"no synchronize each, in {n} cases ({len(K12_FRAMES)} frame "
+        f"counts x {len(K12_ROWS)} row counts x 3 PE kinds x 4 frame-count "
+        f"kinds x 2 rates)")
 
 
 def log_rd_corners(where, args):
@@ -1808,7 +1891,128 @@ def phase_times(dev, inputs, rd_sets):
     out["transients"]["locate"] = k5_locate(inputs)
     out["synth_post"]["locate"] = k10_locate(inputs)
     out["pad_rows"] = k11_hold_and_time(dev)
+    out["budget_scan"] = k12_hold_and_time(dev)
     log_instruction_mix()
+    return out
+
+
+def host_ms(fn, iters: int = 50) -> float:
+    """The host's ms a call of fn(), issuing without waiting on the card."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = (time.perf_counter() - t) / iters * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
+def launches_a_call(fn, iters: int = 5) -> float:
+    """Kernels fn() runs on the card a call (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if getattr(e, "self_device_time_total", 0) > 0
+               and "Memcpy" not in e.key and "Memset" not in e.key) / iters
+
+
+def k12_hold_and_time(dev):
+    """K12 on the main path's own inputs, captured at its wrapper: one
+    30 s encode ([2, 1293], no frame counts) and one 64 x 10 s batch
+    ([128, 448], each row's frame count), and the 30 s clip's PE tiled to
+    [2, 12920] (a 5-minute track). Each == its plain version and the torch
+    scan it replaced (`reservoir.allocate_scan`, on the card), bit for
+    bit; then K12's event, device and host ms beside the torch scan's
+    (its launches a call too) and K12's byte bound; and its library's
+    SASS audit."""
+    import torch
+    from mrcaudiocodec_tpu_torch import corpus
+    from mrcaudiocodec_tpu_torch.models import codec
+    from mrcaudiocodec_tpu_torch.ops import reservoir
+    from mrcaudiocodec_tpu_torch.ops.kernels import budget_scan, build
+    from mrcaudiocodec_tpu_torch.probes import fma_probe
+    from mrcaudiocodec_tpu_torch.profiling import HBM_BYTES_PER_S, device_ms
+    cfg, xi = full_clip()
+    caps = {"encode": [], "corpus": []}
+    where = ["encode"]
+    orig = budget_scan.budget_scan_kernel
+
+    def rec(*args):
+        caps[where[0]].append(args)
+        return orig(*args)
+    budget_scan.budget_scan_kernel = rec
+    try:
+        codec.encode(xi, cfg, device=dev)
+        where[0] = "corpus"
+        corpus.encode_batch(corpus._synth_corpus(64, 10.0), cfg, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        budget_scan.budget_scan_kernel = orig
+    for key, calls in caps.items():
+        check(len(calls) == 1, f"{key}: K12 launched {len(calls)} times, "
+              f"not once a request")
+    pe, nf, *args = caps["encode"][0]
+    reps = -(-12920 // pe.shape[1])
+    caps["track"] = [(pe.repeat(1, reps)[:, :12920].contiguous(), None,
+                      *args)]
+    out = {"launches": 2, "by_shape": {}}
+    for key, ((pe, nf, *args),) in caps.items():
+        rows, frames = pe.shape
+        got = orig(pe, nf, *args)
+        scan = reservoir.allocate_scan(pe, cfg, nf)
+        plain = budget_scan.budget_scan_plain(
+            pe.cpu(), None if nf is None else nf.cpu(), *args)
+        ok = bits_equal(got, plain) and bits_equal(got, scan)
+        log(f"[kernels] budget_scan on the {key} path's own input "
+            f"[{rows}, {frames}], frame counts "
+            f"{'given' if nf is not None else 'none'}: kernel == plain == "
+            f"torch scan bitwise: {ok}")
+        check(ok, f"budget_scan {key} [{rows}, {frames}] differs from its "
+              f"plain version or the torch scan")
+        run = (lambda a=(pe, nf, *args): orig(*a))
+        torch_scan = (lambda a=(pe, cfg, nf): reservoir.allocate_scan(*a))
+        nbytes = rows * frames * (4 + 8) + (0 if nf is None else rows * 8)
+        line = dict(ms=cuda_ms(run, 50),
+                    device_ms=device_ms(run, 20, match="budget_scan_kernel"),
+                    host_ms=host_ms(run),
+                    plain_ms=cuda_ms(lambda a=(pe, nf, *args):
+                                     budget_scan.budget_scan_plain(*a), 3,
+                                     warmup=1),
+                    torch_scan_ms=cuda_ms(torch_scan, 20),
+                    torch_scan_device_ms=device_ms(torch_scan, 10),
+                    torch_scan_host_ms=host_ms(torch_scan, 20),
+                    torch_scan_launches=launches_a_call(torch_scan),
+                    bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                    bound_by="bytes", bytes=nbytes)
+        out["by_shape"][f"{key} [{rows}, {frames}]"] = line
+        log(f"[times] budget_scan at the {key} input [{rows}, {frames}] "
+            f"({nbytes} B): event {line['ms']:.4f} ms, device "
+            f"{line['device_ms']} ms, host {line['host_ms']:.4f} ms, plain "
+            f"{line['plain_ms']:.4f} ms, bound {line['bound_ms']:.6f} ms "
+            f"(bytes); the torch scan: {line['torch_scan_launches']} "
+            f"launches a call, event {line['torch_scan_ms']:.4f} ms, device "
+            f"{line['torch_scan_device_ms']} ms (fills left out), host "
+            f"{line['torch_scan_host_ms']:.4f} ms")
+    first = out["by_shape"][next(iter(out["by_shape"]))]
+    out.update({k: first[k] for k in ("ms", "device_ms", "plain_ms",
+                                      "bound_ms", "bound_by")},
+               library_ms=None)
+    audit = fma_probe.sass_counts(subprocess.run(
+        [fma_probe.cuobjdump(), "-sass", build._so("budget_scan")],
+        capture_output=True, text=True, timeout=120, check=True).stdout)
+    ffma = sum(f["FFMA"] for f in audit.values())
+    ftz = sum(f["FTZ"] for f in audit.values())
+    log(f"[kernels] SASS audit libbudget_scan.so: {ffma} FFMA, {ftz} .FTZ "
+        f"in {len(audit)} kernels")
+    check(ffma == 0 and ftz == 0, "libbudget_scan.so holds FFMA or .FTZ")
     return out
 
 
@@ -1934,7 +2138,7 @@ MIX_CLASSES = {
 
 
 def log_instruction_mix():
-    """Each K1-K11 kernel's SASS instructions (cuobjdump -sass), by
+    """Each K1-K12 kernel's SASS instructions (cuobjdump -sass), by
     class: the static counts the device times are read against (K1's
     kernels are straight-line code, K2's gain loop is unrolled over a
     lane's 8 tuples, 32 bins, K3's over a lane's 16 pairs, twice; K4
@@ -2804,8 +3008,14 @@ def main() -> int:
                      "encoder.py:181 (_padded_rows, numpy; no "
                      "pallas_call)"),
     }
+    meta["budget_scan"] = (
+        "cuda", "mrcaudiocodec_tpu_torch/csrc/budget_scan.cu",
+        "none: lax.associative_scan, mrcaudiocodec_tpu/ops/reservoir.py "
+        "(XLA; no pallas_call); the port's torch scan before it")
     launches["pad_rows"] = times["pad_rows"].pop("launches")
+    launches["budget_scan"] = times["budget_scan"].pop("launches")
     errs["pad_rows"] = 0.0
+    errs["budget_scan"] = 0.0
     kernels = []
     for name, (route, source, replaces) in meta.items():
         kernels.append({"name": name, "route": route, "source": source,

@@ -281,7 +281,7 @@ def _analyze_rows(P: np.ndarray, nf_row, cfg: CodecConfig, dev):
 
 def _budgets(chunks, cfg: CodecConfig, nf_row):
     """Analysed chunks -> each row's frame budgets [R, nf] (their PE
-    joined, then `reservoir.allocate`)."""
+    joined, then `reservoir.allocate`: K12 on a card, one launch)."""
     with trace.span("mrc.budget"):
         pe = torch.cat([ch[3] for ch in chunks], dim=1)           # [R, nf]
         return reservoir.allocate(pe, cfg, nf_row)
@@ -365,7 +365,7 @@ def encode_chunks(audio, orders, spans, nf_row, cfg: CodecConfig, cap: int):
     chunk's stream order on the device (`stream_order`), both iterables
     read in chunk order -> each chunk's packed (body, nbytes, status),
     yielded in turn: every chunk analysed, the budgets of each whole row
-    (`reservoir.allocate`), then per chunk the RD loop and codebooks
+    (`reservoir.allocate`, K12), then per chunk the RD loop and codebooks
     (`decide_chunk`, K2) and the record pack (`pack_chunk`, K3, which
     reads its 8-byte status)."""
     chunks = [_analyze_chunk(a, cfg) for a in audio]

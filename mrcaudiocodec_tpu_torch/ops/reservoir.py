@@ -12,12 +12,19 @@ scan, so this is a Hillis-Steele scan: log2(F) steps, each composing every
 map with the one `d` frames before it. All arithmetic is int64 (PyTorch
 has it on the card, unlike the TPU), so the clip-long mean-PE sum is
 exact at any length the 32-bit header can express.
+
+`allocate` runs that scan for a CPU tensor; on a card it launches K12
+(`kernels/budget_scan.py`), which computes the same budgets in one
+launch. The scan's pieces (`masked_pe`, `local_maps`, `carry_in`,
+`budgets_from_prefix`) are also parallel/sharded.py's, whose carry
+crosses shards of the frame axis.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import config as C
+from .kernels import budget_scan
 
 I64 = torch.int64
 
@@ -80,10 +87,16 @@ def masked_pe(pe, nf_row=None, f0: int = 0):
     return torch.where(frame < nf_row[..., None], pe_q, 0)
 
 
+def desired_bounds(mean_bits: int) -> tuple[int, int]:
+    """(lo, hi), the clamp of a frame's desired bits: floor(mean_bits *
+    MIN_FRAME_FRAC) and floor(mean_bits * (1 + RESERVOIR_MAX_WITHDRAW))."""
+    return (int(mean_bits * C.MIN_FRAME_FRAC),
+            int(mean_bits * (1.0 + C.RESERVOIR_MAX_WITHDRAW)))
+
+
 def desired_bits(pe_q, mean_bits: int, mean_pe):
     """clip((mean_bits * pe_q) // mean_pe, lo, hi), integer-exact."""
-    lo = int(mean_bits * C.MIN_FRAME_FRAC)
-    hi = int(mean_bits * (1.0 + C.RESERVOIR_MAX_WITHDRAW))
+    lo, hi = desired_bounds(mean_bits)
     d = torch.div(mean_bits * pe_q, mean_pe[..., None], rounding_mode="floor")
     return torch.clamp(d, lo, hi)
 
@@ -156,10 +169,29 @@ def allocate(pe, cfg, nf_row=None):
     real ones and cannot reach them through the scan). Mirrors
     mrcaudiocodec_tpu/parallel/sharded.py's per-row mean; parallel/
     sharded.py runs the same pieces with the sum and the carry taken
-    across shards of the frame axis."""
+    across shards of the frame axis.
+
+    A card's tensors take K12 (one launch, no read back); a CPU tensor
+    takes the torch scan; any other device raises."""
     mean_bits = int(cfg.mean_frame_bits)
     if not cfg.reservoir:
         return torch.full(pe.shape, mean_bits, dtype=I64, device=pe.device)
+    if pe.is_cuda:
+        nf = None if nf_row is None else torch.as_tensor(
+            nf_row, dtype=I64, device=pe.device).reshape(-1).contiguous()
+        return budget_scan.budget_scan_kernel(
+            pe.to(torch.float32).reshape(-1, pe.shape[-1]).contiguous(), nf,
+            mean_bits, *desired_bounds(mean_bits),
+            cfg.reservoir_cap).view(pe.shape)
+    if pe.device.type != "cpu":
+        raise ValueError(f"no budget scan for device {pe.device}")
+    return allocate_scan(pe, cfg, nf_row)
+
+
+def allocate_scan(pe, cfg, nf_row=None):
+    """`allocate` with the reservoir on, as the torch scan on pe's device:
+    the CPU path, and on a card the path K12 replaced (timed beside it)."""
+    mean_bits = int(cfg.mean_frame_bits)
     pe_q = masked_pe(pe, nf_row)
     nf = pe.shape[-1] if nf_row is None else torch.as_tensor(
         nf_row, dtype=I64, device=pe.device)

@@ -48,6 +48,8 @@ Counters are plain integers, always on, read by `counters()`:
     staging.grow            allocations of a device's staging buffer: one
                             a device, and another only when a request is
                             larger than any before it
+    budget.kernel           K12's launches (`reservoir.allocate` on a card:
+                            one a request); the CPU's torch scan counts none
 """
 from __future__ import annotations
 

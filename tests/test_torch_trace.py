@@ -142,8 +142,22 @@ def test_counters_count_bytes_up_and_blocking_reads(monkeypatch):
     assert got["staging.bytes_up"] == x.nbytes
     assert got["host_syncs.download"] == 2 * len(spans)
     assert exits[0] > 0 and got["host_syncs.rd_exit"] == exits[0]
-    # the plain pack on the CPU reads no status from a device
+    # the plain pack on the CPU reads no status from a device, and the
+    # CPU's budgets come from the torch scan, not K12
     assert got.get("host_syncs.pack_status", 0) == 0
+    assert got.get("budget.kernel", 0) == 0
+
+
+@pytest.mark.parametrize("make", [clip_request, batch_request])
+def test_every_counter_a_request_counts_is_listed(make):
+    run = make()
+    _, _, got = traced(run)
+    listed = {line.split()[0] for line in trace.__doc__.split(
+        "read by `counters()`:")[1].splitlines() if line.startswith(
+            "    ") and not line.startswith("     ")}
+    assert set(got) <= listed
+    # K12's counter, which only a card's budgets count
+    assert "budget.kernel" in listed
 
 
 def test_counters_of_a_batch_count_every_chunk():

@@ -16,8 +16,11 @@ span each starts in; whether every stage span lies inside its top span
 with no two stages overlapping; the host ms of the entry's spans (pad,
 order, upload, assemble; waits on the card left out) and of the top
 span outside all of them and of the request outside the top span, beside
-the request's wall less the stages' (as `entry_self_ms` reads it); and
-the change of the codec's counters.
+the request's wall less the stages' (as `entry_self_ms` reads it); the
+runtime calls that put work on the card inside each `mrc.budget` span,
+which must be two (the PE join, a kernel or for one chunk a copy on the
+card, and K12), and `budget.kernel` counted once a request; and the change
+of the codec's counters. It exits 1 when a budget check fails.
 
 `cost` times calls with the codec's tracing on and off, no profiler
 running: `--sets` sets of `--calls` calls a side, the sides in turns, the
@@ -175,7 +178,17 @@ def check_spans(cell: str, seed: int, requests: int, device: str,
     # the stages'
     entry_self = (req_wall - sum(readers.overlap(a, b, stage)
                                  for a, b in req)) / 1e6 / n
+    # the device work inside each mrc.budget span: the PE join (a kernel
+    # for several chunks, a copy on the card for one) and K12
+    budget = [sorted(name for name, s, _, _ in t.runtime
+                     if a <= s <= b and ("LaunchKernel" in name
+                                         or "Memcpy" in name))
+              for a, b in spans.get("mrc.budget", [])]
+    k12 = (after.get("budget.kernel", 0) - before.get("budget.kernel", 0)) / n
     return {
+        "budget_device_calls": budget, "budget_kernel_a_request": k12,
+        "budget_ok": len(budget) == n and all(len(b) == 2 for b in budget)
+        and k12 == 1,
         "requests": n, "nested": nested(spans),
         "k2_k4_by_span": by_span(spans, dev(
             lambda s: "quant_cost" in s or "rd_loop" in s), n),
@@ -243,7 +256,7 @@ def main(argv=None) -> int:
     out.update(mode=args.mode, workload=args.workload, seed=args.seed,
                card=card())
     print(json.dumps(out), flush=True)
-    return 0
+    return 0 if out.get("budget_ok", True) else 1
 
 
 if __name__ == "__main__":
