@@ -80,29 +80,14 @@ Phases, in order; any failure raises, so the exit code is non-zero:
   7. full size: the benchmark clip (30 s stereo 44.1 kHz 128 kbps, int16)
      encoded and decoded on the card, kernel launch counts of that run (K4
      once and K2 twice a chunk, K5-K8 once and K1 four times a chunk in
-     the encode, no RD host sync, no plain RD loop; K9 and K10 once and K1
-     twice a chunk in the decode, nothing else; the
-     plain path's host syncs on the same clip beside them), then one
-     warm-up and 5 timed runs of each
-  8. where the time goes: host-clock ms per encode/decode stage (the pack
-     stage as the stream order built and uploaded, device pack, download
-     of the compact stream body and assemble, beside the host-pack path,
-     with the bytes each downloads; the decode as the native parse, the
-     slabs' transposes and casts, upload, synth (the chunks in order, each
-     K10 adding the tail before it into its slice of one clip buffer) and
-     the one download, already [n, channels]),
-     and the card's busy share (the decode's copies counted: 1 download)
-     with the top kernels (torch.profiler), with K1-K10's
-     launches and device ms in one encode and one decode; the analysis
-     alone (_analyze_chunk on the clip's chunk): its launch count and
-     device events (K5, K6, K1 x 4, K7, K8 and nothing else), device ms,
-     best wall and busy share; _synth_chunk alone on each of the decode's
-     two chunks the same way (K9, K1 x 2, K10 and nothing else);
-     decide_chunk on
-     the clip's chunk with K4, with the loop in its plain version (the
-     parent's path) and with every kernel plain, in turns: wall, device
-     ms, host syncs
-  9. the probe path (P1-P5, mrcaudiocodec_tpu_torch/probes/): builds the
+     the encode, no RD host sync; K9 and K10 once and K1 twice a chunk in
+     the decode, nothing else), no plain version of K1-K12 (nor the torch
+     budget scan) called in either, the plain path's host syncs on the
+     same clip beside them; one profiled decode makes one download; the
+     analysis of the clip's chunk alone launches K5, K6, K1 x 4, K7, K8
+     and no other device event, the synthesis of each decode chunk alone
+     K9, K1 x 2, K10 and no other
+  8. the probe path (P1-P5, mrcaudiocodec_tpu_torch/probes/): builds the
      four probe libraries and the --fmad=true control, runs each probe
      module on the card with the launch counts, asserts P3's
      classifications and the SASS audit (no FFMA, no .FTZ where the
@@ -111,22 +96,21 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      bodies against its plain version (bitwise; v1 within 4 if exp2f/powf
      differ), and times each beside its plain version, its bound and a
      library call; P1 and P4 again at 2048 rows
- 10. the corpus path: corpus.encode_batch on 64 clips x 10 s stereo
-     128 kbps (the corpus bench's batch), fused on the card, with the launch
-     counts of that run; every stream == the clip's single-clip card
-     encode, and a 5-clip mixed-length bucket too; wall time (5 timed runs
-     after a warm-up), real-time factor, frames/s, peak device memory and
-     the card's busy share, and the device time outside K1-K10
- 11. the CLI: python -m mrcaudiocodec_tpu_torch.cli encode, info, decode in
+  9. the corpus path: corpus.encode_batch on 64 clips x 10 s stereo
+     128 kbps (the corpus64.encode cell's batch), fused on the card, with
+     the launch counts and peak device memory of that run; every stream ==
+     the clip's single-clip card encode, and a 5-clip mixed-length bucket
+     too
+ 10. the CLI: python -m mrcaudiocodec_tpu_torch.cli encode, info, decode in
      subprocesses on a WAV the script writes; the .mrc bytes == codec.encode
      and the WAV == codec.decode on the card
- 12. the parallel path (parallel/), on the card: acceptance config 3 (5 min
+ 11. the parallel path (parallel/), on the card: acceptance config 3 (5 min
      48 kHz stereo 192 kbps) encoded on the card == its card encode with
      K1-K10 swapped for their plain versions, its card decode == the
      decode with K9 and K10 swapped for theirs; (a) sharded encode, every
      shard in turn in this process (LocalShards): the 30 s clip at (data,
      seq) = (1, 4), (2, 2), (2, 1) == codec.encode, config 3 at (1, 4) ==
-     its unsharded encode, the 64 x 10 s batch at (4, 2) == phase 10's
+     its unsharded encode, the 64 x 10 s batch at (4, 2) == phase 9's
      streams; (b) sharded decode of the 30 s stream at (1, 4), (2, 2) ==
      codec.decode float32 bitwise; the K1-K10 launch counts of (a) and of
      (b) (the decodes: K9, K1, K10 only); K1-K10 held bitwise to their plain versions on the inputs the
@@ -140,20 +124,14 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      it, every .mrc == codec.encode) and a GroupShards encode at (1, 2), a
      seq shard in each process (streams == codec.encode; each exchange's
      host-clock ms)
- 13. the bench: mrcaudiocodec_tpu_torch.bench.main(["--full", "--kernels"])
-     in this process at its default sizes (the 30 s clip, the spec on
-     4 s), with K1-K10's launch counts around it and their plain versions
-     counted too (none may run), its device-resident decode K9, K1 x 2
-     and K10 a slab and nothing else; its JSON line has the root bench.py's 11
-     keys, the stream equals the port's spec's, segSNR and PSNR equal the
-     spec's; every value logged beside the card's name and power limit
- 14. one JSON line listing the kernels
+ 12. one JSON line listing the kernels
 The last line is {"ok": true, "device": {...}}. Without a CUDA card, or
 without the repository beside it, the script exits non-zero and prints no
 result.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import subprocess
@@ -181,6 +159,40 @@ def make_golden_clip(fs, seconds, channels):
     if channels == 2:
         return np.stack([x, np.roll(x, 13) * 0.85], 1)
     return x[:, None]
+
+
+def make_clip(fs: int, seconds: float, channels: int, seed=0):
+    """Music-like: an evolving tone stack, a noise floor and transients
+    every 0.7 s (the root bench.py's clip)."""
+    rng = np.random.default_rng(seed)
+    n = int(fs * seconds)
+    t = np.arange(n) / fs
+    x = np.zeros(n, np.float32)
+    for f0, a in [(220, 0.3), (440, 0.2), (1320, 0.12), (3520, 0.07)]:
+        x += (a * np.sin(2 * np.pi * f0 * t + 0.1 * np.sin(2 * np.pi * 0.5 * t))
+              ).astype(np.float32)
+    x += (0.02 * rng.standard_normal(n)).astype(np.float32)
+    for pos in range(fs // 2, n - 300, int(0.7 * fs)):
+        x[pos:pos + 96] += (0.5 * rng.standard_normal(96)).astype(np.float32)
+    x = np.clip(x, -1, 1)
+    if channels == 2:
+        return np.stack([x, np.roll(x, 11) * 0.9], axis=1)
+    return x[:, None]
+
+
+def to_i16(xf):
+    return np.clip(np.round(xf * 32768.0), -32768, 32767).astype(np.int16)
+
+
+def segmental_snr(x, y, seg=1024):
+    n = (len(x) // seg) * seg
+    xs = x[:n].reshape(-1, seg)
+    ys = y[:n].reshape(-1, seg)
+    num = (xs ** 2).mean(axis=1)
+    den = ((xs - ys) ** 2).mean(axis=1)
+    keep = num > 1e-8
+    return float(np.mean(10 * np.log10((num[keep] + 1e-30)
+                                       / (den[keep] + 1e-30))))
 
 
 GOLDEN = [
@@ -248,7 +260,6 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 def full_clip():
     """The benchmark clip and its config: 30 s stereo 44.1 kHz 128 kbps,
     int16."""
-    from mrcaudiocodec_tpu_torch.bench import make_clip, to_i16
     from mrcaudiocodec_tpu_torch.config import CodecConfig
     return (CodecConfig(fs=44100, channels=2, bitrate=128000),
             to_i16(make_clip(44100, 30.0, 2)))
@@ -664,7 +675,6 @@ def phase_kernels_rd_loop(dev, inputs, err):
     30 s chunk and each corner set, for phase 4's k4_locate."""
     import torch
     from mrcaudiocodec_tpu_torch import config as C
-    from mrcaudiocodec_tpu_torch.bench import make_clip
     from mrcaudiocodec_tpu_torch.config import CodecConfig
     from mrcaudiocodec_tpu_torch.models import codec
     from mrcaudiocodec_tpu_torch.ops import rd
@@ -743,7 +753,6 @@ def analysis_cases():
     stride of their own)."""
     from mrcaudiocodec_tpu_torch import config as C
     from mrcaudiocodec_tpu_torch import corpus
-    from mrcaudiocodec_tpu_torch.bench import make_clip, to_i16
     from mrcaudiocodec_tpu_torch.config import CodecConfig
     from mrcaudiocodec_tpu_torch.models import encoder
 
@@ -884,7 +893,6 @@ def synthesis_cases(dev):
     from mrcaudiocodec_tpu_torch import config as C
     from mrcaudiocodec_tpu_torch import native
     from mrcaudiocodec_tpu_torch import tables as T
-    from mrcaudiocodec_tpu_torch.bench import make_clip
     from mrcaudiocodec_tpu_torch.config import CodecConfig
     from mrcaudiocodec_tpu_torch.models import codec, decoder
     from mrcaudiocodec_tpu_torch.utils.bits import BitWriter
@@ -1204,7 +1212,6 @@ def phase_goldens(dev):
 
 
 def phase_card_vs_cpu(dev):
-    from mrcaudiocodec_tpu_torch.bench import make_clip
     from mrcaudiocodec_tpu_torch.config import CodecConfig
     from mrcaudiocodec_tpu_torch.models import codec, encoder, packing
     cfg = CodecConfig(fs=44100, channels=2, bitrate=128000)
@@ -1228,13 +1235,45 @@ def phase_card_vs_cpu(dev):
     check(same_pcm, "card and CPU decodes differ")
 
 
+def plain_versions():
+    """(module, attribute) of every kernel's plain version, K1-K12, and of
+    the torch budget scan K12 replaced: none of them may run on the card
+    path."""
+    from mrcaudiocodec_tpu_torch.ops import device_pack, rd, reservoir
+    from mrcaudiocodec_tpu_torch.ops.kernels import budget_scan, pad_rows
+    kernels = kernel_modules()
+    return ((kernels[0], "fft_plain"), (kernels[1], "payload_bits_plain"),
+            (device_pack, "pack_stream_plain"), (rd, "rd_loop_plain"),
+            *((m, f"{n}_plain") for m, n in zip(kernels[4:8], ANALYSIS)),
+            *((m, f"{n}_plain") for m, n in zip(kernels[8:], SYNTHESIS)),
+            (pad_rows, "pad_rows_plain"), (budget_scan, "budget_scan_plain"),
+            (reservoir, "allocate_scan"))
+
+
+@contextlib.contextmanager
+def plain_calls():
+    """Counts the calls of every plain version (plain_versions) while the
+    block runs -> {attribute: calls}."""
+    plains = plain_versions()
+    calls = {attr: 0 for _, attr in plains}
+    saved = [getattr(mod, attr) for mod, attr in plains]
+    for (mod, attr), orig in zip(plains, saved):
+        def counted(*a, _orig=orig, _attr=attr, **k):
+            calls[_attr] += 1
+            return _orig(*a, **k)
+        setattr(mod, attr, counted)
+    try:
+        yield calls
+    finally:
+        for (mod, attr), orig in zip(plains, saved):
+            setattr(mod, attr, orig)
+
+
 def phase_full(dev):
     """Main path at full size; returns (launch counts, stats)."""
     import torch
     from mrcaudiocodec_tpu_torch import config as C
-    from mrcaudiocodec_tpu_torch.bench import segmental_snr
     from mrcaudiocodec_tpu_torch.models import codec, decoder, encoder
-    from mrcaudiocodec_tpu_torch.ops import rd
     seconds = 30.0
     cfg, xi = full_clip()
     x = xi.astype(np.float32) / np.float32(32768.0)
@@ -1243,16 +1282,9 @@ def phase_full(dev):
     dec_chunks = -(-C.frames_for_samples(xi.shape[0]) // decoder.DEC_CHUNK)
 
     kernels = kernel_modules()
-    plain_loops = [0]
-    orig_plain = rd.rd_loop_plain
-
-    def counted_plain(*a, **k):
-        plain_loops[0] += 1
-        return orig_plain(*a, **k)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rd.rd_loop_plain = counted_plain
-    try:
+    with plain_calls() as plain:
         for k in kernels:
             k.launches = 0
         s0 = rd_exits()
@@ -1261,25 +1293,23 @@ def phase_full(dev):
         enc_launch = {k.__name__.rsplit(".", 1)[-1]: k.launches
                       for k in kernels}
         syncs = rd_exits() - s0
-    finally:
-        rd.rd_loop_plain = orig_plain
-    enc_peak = torch.cuda.max_memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    for k in kernels:
-        k.launches = 0
-    y, _ = codec.decode(bs, device=dev)
-    torch.cuda.synchronize()
-    dec_launch = {k.__name__.rsplit(".", 1)[-1]: k.launches for k in kernels}
-    dec_peak = torch.cuda.max_memory_allocated()
+        enc_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels:
+            k.launches = 0
+        y, _ = codec.decode(bs, device=dev)
+        torch.cuda.synchronize()
+        dec_launch = {k.__name__.rsplit(".", 1)[-1]: k.launches
+                      for k in kernels}
+        dec_peak = torch.cuda.max_memory_allocated()
     s0 = rd_exits()
     bs_plain = plain_path(lambda: codec.encode(xi, cfg, device=dev))
     plain_syncs = rd_exits() - s0
     log(f"[full] launches in one encode ({chunks} chunk): {enc_launch}; in "
         f"one decode ({dec_chunks} chunks): {dec_launch}; RD loop-exit host "
-        f"syncs in the encode: "
-        f"{syncs}, plain RD loops run: {plain_loops[0]}; the same encode "
-        f"with K1-K10 plain: {plain_syncs} host syncs, stream equal: "
-        f"{bs_plain == bs}")
+        f"syncs in the encode: {syncs}; plain versions called in the encode "
+        f"and decode: {plain}; the same encode with K1-K10 plain: "
+        f"{plain_syncs} host syncs, stream equal: {bs_plain == bs}")
     check(enc_launch["fft_stages"] == 4 * chunks,
           f"encode launched fft_stages {enc_launch['fft_stages']} times, "
           f"not 4 a chunk (the analysis' four layouts)")
@@ -1294,8 +1324,10 @@ def phase_full(dev):
     check(enc_launch["rd_loop"] == chunks,
           f"encode launched rd_loop {enc_launch['rd_loop']} times, not once "
           f"a chunk")
-    check(syncs == 0 and plain_loops[0] == 0,
-          f"the card encode ran the plain RD loop ({syncs} host syncs)")
+    check(syncs == 0, f"the card encode ran the plain RD loop ({syncs} host "
+          f"syncs)")
+    check(not any(plain.values()),
+          f"a plain version ran on the card encode or decode: {plain}")
     check(bs_plain == bs, "the plain-path encode's stream differs")
     check(enc_launch["record_pack"] > 0, "encode launched no record_pack")
     want_dec = {**{k: 0 for k in KERNELS}, "fft_stages": 2 * dec_chunks,
@@ -1310,33 +1342,73 @@ def phase_full(dev):
     kbps = len(bs) * 8 / seconds / 1000
     ssnr = segmental_snr(x[:, 0], y[:, 0])
     check(ssnr > 10.0, f"segmental SNR {ssnr:.2f} dB too low")
-
-    def timed(fn, n=5):
-        fn()                                   # warm-up
-        torch.cuda.synchronize()
-        out = []
-        for _ in range(n):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            out.append((time.perf_counter() - t0) * 1e3)
-        return out
-
-    enc_ms = timed(lambda: codec.encode(xi, cfg, device=dev))
-    dec_ms = timed(lambda: codec.decode(bs, device=dev, pcm_dtype="int16"))
-    stats = {"encode_ms": enc_ms, "decode_ms": dec_ms,
-             "encode_rtf": seconds * 1e3 / min(enc_ms),
-             "decode_rtf": seconds * 1e3 / min(dec_ms),
-             "kbps": kbps, "seg_snr_db": ssnr,
+    stats = {"kbps": kbps, "seg_snr_db": ssnr,
              "encode_peak_bytes": enc_peak, "decode_peak_bytes": dec_peak,
              "host_syncs": syncs, "plain_path_host_syncs": plain_syncs}
-    log(f"[full] 30 s stereo 44.1 kHz 128 kbps int16: encode ms {enc_ms} "
-        f"(RTF {stats['encode_rtf']:.2f}x best); decode ms {dec_ms} "
-        f"(RTF {stats['decode_rtf']:.2f}x best); {kbps:.2f} kbps; "
+    log(f"[full] 30 s stereo 44.1 kHz 128 kbps int16: {kbps:.2f} kbps; "
         f"segSNR ch0 {ssnr:.2f} dB; peak memory encode {enc_peak} B, "
         f"decode {dec_peak} B")
+    full_alone(dev, cfg, xi, bs)
     launches = {k: enc_launch[k] + dec_launch[k] for k in enc_launch}
     return launches, stats
+
+
+def only_launches(where, fn, want, events=None):
+    """One profiled call of fn() (after a warm-up) launches the kernels
+    `want` ({name: launches}, the others none) and no other device event,
+    `events` of them in all where given."""
+    mods = kernel_modules()
+    fn()
+    for k in mods:
+        k.launches = 0
+    _, rows = profile_once(fn)
+    counts = {k.__name__.rsplit(".", 1)[-1]: k.launches for k in mods}
+    n = sum(r[2] for r in rows)
+    other = [(k[:60], c) for k, _, c in rows
+             if not any(f"{name}_kernel" in k for name in KERNELS)]
+    log(f"[full] {where} on the card: {n} device events, launch counts "
+        f"{counts}; other events {other}")
+    want = {**{k: 0 for k in KERNELS}, **want}
+    check(counts == want and not other and events in (None, n),
+          f"{where} launched {counts} and ran other device events {other}, "
+          f"not {want} alone")
+
+
+def full_alone(dev, cfg, xi, bs):
+    """A profiled decode of the 30 s stream makes one download; the
+    analysis of the clip's chunk alone launches K5, K6, K1 x 4, K7 and K8
+    and no other device event, the synthesis of each decode chunk alone
+    (each taking the tail of the one before) K9, K1 x 2 and K10."""
+    import torch
+    from mrcaudiocodec_tpu_torch import config as C
+    from mrcaudiocodec_tpu_torch.models import codec, decoder, encoder
+    _, rows = profile_once(lambda: codec.decode(bs, device=dev,
+                                                pcm_dtype="int16"))
+    if rows:
+        copies = {k: c for k, _, c in rows if "Memcpy" in k}
+        down = sum(c for k, c in copies.items() if "DtoH" in k)
+        log(f"[full] decode: copies {copies}; downloads {down} (the PCM, "
+            f"already [n, channels])")
+        check(down == 1, f"the decode made {down} downloads, not 1")
+    else:
+        log("[full] decode: copies not measured (the profiler recorded no "
+            "device time)")
+    nf = C.frames_for_samples(xi.shape[0])
+    f0, s = encoder.chunk_spans(nf, cfg.channels)[0]
+    sl = encoder.upload_chunk(encoder._padded_rows(xi, nf), f0, s, dev)
+    only_launches(f"_analyze_chunk ({s} frames x {cfg.channels} rows)",
+                  lambda: encoder._analyze_chunk(sl, cfg),
+                  {"fft_stages": 4, **{k: 1 for k in ANALYSIS}})
+    tail = None
+    for slab in decoder.slabs(*decoder.parse_records(bs), cfg.channels):
+        sl = tuple(torch.from_numpy(a).to(dev) for a in slab)
+        only_launches(
+            f"_synth_chunk ({sl[2].shape[1]} frames x {sl[2].shape[0]} rows, "
+            f"int16, prev {'null' if tail is None else 'given'})",
+            lambda sl=sl, tail=tail: decoder._synth_chunk(
+                *sl, cfg.fs, cfg.window, True, tail),
+            {"fft_stages": 2, **{k: 1 for k in SYNTHESIS}}, events=4)
+        tail = decoder._synth_chunk(*sl, cfg.fs, cfg.window, True, tail)[2]
 
 
 def profile_once(fn):
@@ -1356,273 +1428,6 @@ def profile_once(fn):
     rows = [(e.key, getattr(e, "self_device_time_total", 0) / 1e3, e.count)
             for e in prof.key_averages()]
     return prof, [r for r in rows if r[1] > 0 and "FillFunctor" not in r[0]]
-
-
-def phase_breakdown(dev):
-    """Where one full-size encode and decode spend their time: host-clock
-    laps around each stage (each closed by a synchronize), and the card's
-    busy share from torch.profiler's kernel times over one whole run."""
-    import torch
-    from mrcaudiocodec_tpu_torch import bitstream
-    from mrcaudiocodec_tpu_torch import config as C
-    from mrcaudiocodec_tpu_torch.models import codec, decoder, encoder, packing
-    from mrcaudiocodec_tpu_torch.ops import device_pack, reservoir
-    from mrcaudiocodec_tpu_torch.profiling import (device_ms,
-                                                   kernel_device_totals)
-    cfg, xi = full_clip()
-    bs = codec.encode(xi, cfg, device=dev)                    # warm-up
-    laps = {}
-
-    def lap(name, t0):
-        torch.cuda.synchronize()
-        laps[name] = laps.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
-
-    # the stages of encoder.encode, called one by one
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    nf = C.frames_for_samples(xi.shape[0])
-    P = encoder._padded_rows(xi, nf)
-    lap("enc.pad", t)
-    spans = encoder.chunk_spans(nf, P.shape[0])
-    chunks = []
-    for f0, s in spans:
-        t = time.perf_counter()
-        sl = encoder.upload_chunk(P, f0, s, dev)
-        lap("enc.upload", t)
-        t = time.perf_counter()
-        chunks.append(encoder._analyze_chunk(sl, cfg))
-        lap("enc.analyze", t)
-    t = time.perf_counter()
-    budgets = reservoir.allocate(torch.cat([c[3] for c in chunks], 1), cfg)
-    lap("enc.budget", t)
-    t = time.perf_counter()
-    decisions = [encoder.decide_chunk(ch, budgets[:, f0:f0 + s], cfg)
-                 for ch, (f0, s) in zip(chunks, spans)]
-    lap("enc.rd+codebook", t)
-    cap = device_pack.pack_cap_bytes(cfg)
-    t = time.perf_counter()
-    orders = [encoder.stream_order(None, cfg.channels, f0, s, P.shape[0])
-              for f0, s in spans]
-    order_dev = [torch.from_numpy(o).to(dev) for o, _ in orders]
-    lap("enc.order", t)
-    t = time.perf_counter()
-    packed = [encoder.pack_chunk(d, o, cfg, cap)
-              for d, o in zip(decisions, order_dev)]
-    lap("enc.device_pack", t)
-    t = time.perf_counter()
-    down = [encoder.download_body(p) for p in packed]
-    lap("enc.download", t)
-    t = time.perf_counter()
-    stream = encoder.header(cfg, nf, xi.shape[0]) + b"".join(
-        encoder.clip_slices(*dn, c)[0] for dn, (_, c) in zip(down, orders))
-    lap("enc.assemble", t)
-    check(stream == bs, "the staged encode differs from codec.encode")
-    # the host-pack path the last three stages replace, same decisions
-    t = time.perf_counter()
-    arrays = encoder.download(decisions)
-    lap("host.download_decisions", t)
-    t = time.perf_counter()
-    packed_host = packing.pack_stream(arrays, nf, xi.shape[0], cfg)
-    lap("host.pack", t)
-    check(packed_host == bs, "the host-packed stream differs")
-    # the stages of decoder.decode (int16 PCM), called one by one: the
-    # native parse, the slabs' transposes and casts, the upload, the
-    # synthesis of the chunks in order (each K10 adding the tail before it
-    # and writing its slice of the clip buffer), the one download
-    _, nf_dec, n_samples, _ = bitstream.read_header(bs)
-    t = time.perf_counter()
-    recs = decoder.parse_records(bs)
-    lap("dec.parse", t)
-    t = time.perf_counter()
-    slabs = decoder.slabs(*recs, cfg.channels)
-    lap("dec.slabs", t)
-    t = time.perf_counter()
-    staged = [tuple(torch.from_numpy(a).to(dev) for a in slab)
-              for slab in slabs]
-    lap("dec.upload", t)
-    t = time.perf_counter()
-    clip = torch.empty((nf_dec * C.HOP, cfg.channels), dtype=torch.int16,
-                       device=dev)
-    tails, f0 = [None], 0
-    for sl in staged:
-        s_ = sl[2].shape[1]
-        tails.append(decoder._synth_chunk(
-            *sl, cfg.fs, cfg.window, True, tails[-1],
-            clip[f0 * C.HOP:(f0 + s_) * C.HOP])[2])
-        f0 += s_
-    lap("dec.synth", t)
-    t = time.perf_counter()
-    y = clip[C.HOP:C.HOP + n_samples].cpu().numpy()
-    lap("dec.download", t)
-    t = time.perf_counter()
-    y_ref, _ = codec.decode(bs, device=dev, pcm_dtype="int16")
-    lap("dec.total", t)
-    check(np.array_equal(y, y_ref), "the staged decode differs from "
-          "codec.decode")
-    log("[breakdown] 30 s stereo, host-clock ms per stage: "
-        + json.dumps({k: round(v, 3) for k, v in laps.items()}))
-    sizes = {"decisions": sum(t.numel() * t.element_size()
-                              for d in decisions for t in d),
-             "body": sum(b.nbytes + n.size * 4 + 8 for b, n in down)}
-    log(f"[breakdown] bytes downloaded per encode: decisions (q int16, amp "
-        f"int8, gain int16, bt int8, cb int8) {sizes['decisions']}; stream "
-        f"body + nbytes int32 + status {sizes['body']} "
-        f"({sum(b.nbytes for b, _ in down)} + "
-        f"{sum(n.size for _, n in down)} x 4 + {8 * len(down)}); the stream "
-        f"{len(bs)}")
-
-    # busy share = device time (the profiler's kernel and copy times) over
-    # the best UNprofiled wall time: the profiled run's own wall time
-    # includes the profiler's start-up
-    for name, fn in (("encode", lambda: codec.encode(xi, cfg, device=dev)),
-                     ("decode", lambda: codec.decode(bs, device=dev,
-                                                     pcm_dtype="int16"))):
-        walls = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
-        prof, rows = profile_once(fn)
-        rows = sorted(rows, key=lambda r: -r[1])
-        busy = sum(r[1] for r in rows)
-        if busy == 0:
-            log(f"[profile] {name}: device time not measured (the profiler "
-                f"recorded no kernel time)")
-            continue
-        log(f"[profile] {name}: best wall {min(walls):.2f} ms (unprofiled), "
-            f"device time {busy:.2f} ms, busy share "
-            f"{busy / min(walls):.3f}, {sum(r[2] for r in rows)} device "
-            f"events")
-        if name == "decode":
-            copies = {k: c for k, _, c in rows if "Memcpy" in k}
-            down = sum(c for k, c in copies.items() if "DtoH" in k)
-            log(f"[profile] decode: copies {copies}; downloads {down} (the "
-                f"PCM, already [n, channels])")
-            check(down == 1, f"the decode made {down} downloads, not 1")
-        for key, ms, count in rows[:8]:
-            log(f"[profile] {name}:   {ms:9.3f} ms  x{count:<6} {key[:90]}")
-        tot = kernel_device_totals(prof, [f"{k}_kernel" for k in KERNELS])
-        log(f"[profile] {name}: " + "; ".join(
-            f"K{i + 1} {k} {tot[k + '_kernel'][0]} launches, "
-            f"{tot[k + '_kernel'][1]:.4f} ms device"
-            for i, k in enumerate(KERNELS)))
-
-    # the analysis of the clip's chunk alone: its device events, one
-    # profiled call (each kernel's launches, every other event by name),
-    # beside its best wall of 5 after a warm-up
-    sl = encoder.upload_chunk(P, spans[0][0], spans[0][1], dev)
-    walls = []
-    for _ in range(6):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        encoder._analyze_chunk(sl, cfg)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    mods = kernel_modules()
-    for k in mods:
-        k.launches = 0
-    prof, rows = profile_once(lambda: encoder._analyze_chunk(sl, cfg))
-    counts = {k.__name__.rsplit(".", 1)[-1]: k.launches for k in mods}
-    events = sum(r[2] for r in rows)
-    dms = sum(r[1] for r in rows)
-    tot = kernel_device_totals(prof, [f"{k}_kernel" for k in KERNELS])
-    named = {k: tot[f"{k}_kernel"] for k in KERNELS if tot[f"{k}_kernel"][0]}
-    other = [(k[:60], c) for k, _, c in rows
-             if not any(f"{n}_kernel" in k for n in KERNELS)]
-    best = min(walls[1:])
-    log(f"[breakdown] _analyze_chunk ({spans[0][1]} frames x "
-        f"{cfg.channels} rows) on the card: {events} device events "
-        f"(launch count), {dms:.4f} ms device, best wall {best:.3f} ms of "
-        f"5 (ms {[round(w, 3) for w in walls[1:]]}), busy share "
-        f"{dms / best:.3f}; kernels (launches, device ms) "
-        f"{json.dumps(named)}; other events {other}; launch counts "
-        f"{counts}")
-    want = {**{k: 0 for k in KERNELS}, "fft_stages": 4,
-            **{k: 1 for k in ANALYSIS}}
-    check(counts == want and not other,
-          f"the analysis launched {counts} and ran other device events "
-          f"{other}, not K5, K6, K1 x 4, K7 and K8 alone")
-
-    # the synthesis of each of the decode's chunks alone, the same way:
-    # K9, K1 x 2 and K10 and no other device event
-    for sl, tail in zip(staged, tails):
-        def synth(sl=sl, tail=tail):
-            return decoder._synth_chunk(*sl, cfg.fs, cfg.window, True, tail)
-        walls = []
-        for _ in range(6):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            synth()
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
-        for k in mods:
-            k.launches = 0
-        prof, rows = profile_once(synth)
-        counts = {k.__name__.rsplit(".", 1)[-1]: k.launches for k in mods}
-        events = sum(r[2] for r in rows)
-        dms = sum(r[1] for r in rows)
-        tot = kernel_device_totals(prof, [f"{k}_kernel" for k in KERNELS])
-        named = {k: tot[f"{k}_kernel"] for k in KERNELS
-                 if tot[f"{k}_kernel"][0]}
-        other = [(k[:60], c) for k, _, c in rows
-                 if not any(f"{n}_kernel" in k for n in KERNELS)]
-        best = min(walls[1:])
-        log(f"[breakdown] _synth_chunk ({sl[2].shape[1]} frames x "
-            f"{sl[2].shape[0]} rows, int16, prev "
-            f"{'null' if tail is None else 'given'}) on the card: {events} "
-            f"device "
-            f"events (launch count), {dms:.4f} ms device, best wall "
-            f"{best:.3f} ms of 5 (ms {[round(w, 3) for w in walls[1:]]}), "
-            f"busy share {dms / best:.3f}; kernels (launches, device ms) "
-            f"{json.dumps(named)}; other events {other}; launch counts "
-            f"{counts}")
-        want = {**{k: 0 for k in KERNELS}, "fft_stages": 2,
-                **{k: 1 for k in SYNTHESIS}}
-        check(counts == want and not other and events == 4,
-              f"the synthesis launched {counts} and ran other device "
-              f"events {other}, not K9, K1 x 2 and K10 alone")
-
-    # decide_chunk on the clip's chunk: with K4; with the loop in its
-    # plain version and K2 for every sweep (the path before K4); with
-    # every kernel plain. In turns, the order reversed every round
-    ch, bud = chunks[0], budgets[:, spans[0][0]:spans[0][0] + spans[0][1]]
-    runs = {"K4": lambda: encoder.decide_chunk(ch, bud, cfg),
-            "plain RD loop": lambda: plain_path(
-                lambda: encoder.decide_chunk(ch, bud, cfg), ("rd_loop",)),
-            "all plain": lambda: plain_path(
-                lambda: encoder.decide_chunk(ch, bud, cfg))}
-    ref = runs["K4"]()
-    walls = {k: [] for k in runs}
-    syncs = {}
-    for name, fn in runs.items():
-        s0 = rd_exits()
-        same = all(torch.equal(a, b) for a, b in zip(fn(), ref))
-        syncs[name] = rd_exits() - s0
-        check(same, f"decide_chunk ({name}) differs from K4's")
-    for r in range(6):
-        order = list(runs) if r % 2 else list(runs)[::-1]
-        for name in order:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            runs[name]()
-            torch.cuda.synchronize()
-            walls[name].append((time.perf_counter() - t0) * 1e3)
-    res = {}
-    for name, fn in runs.items():
-        dms = device_ms(fn, 5)
-        w = walls[name][1:]
-        res[name] = {"wall_ms": w, "best_ms": min(w),
-                     "median_ms": float(np.median(w)), "device_ms": dms,
-                     "host_syncs": syncs[name]}
-        log(f"[breakdown] decide_chunk ({spans[0][1]} frames x "
-            f"{cfg.channels} rows) {name}: wall best {min(w):.3f} ms, "
-            f"median {np.median(w):.3f} ms (5 runs after a warm-up, in "
-            f"turns), device {dms} ms a call, busy share "
-            f"{'not measured' if dms is None else f'{dms / min(w):.3f}'}, "
-            f"{syncs[name]} host syncs a call; ms {w}")
-    return res
 
 
 def time_input(where, key, args):
@@ -2388,15 +2193,14 @@ def phase_probes(dev):
 
 
 def phase_corpus(dev):
-    """The corpus path at its bench size: 64 clips x 10 s stereo 128 kbps
-    fused on the card, the launch counts of that run, each stream against
-    the clip's single-clip encode, a mixed-length bucket, then timings.
-    -> (launches, stats)."""
+    """The corpus path at the corpus64.encode cell's size: 64 clips x 10 s
+    stereo 128 kbps fused on the card, the launch counts of that run, each
+    stream against the clip's single-clip encode, a mixed-length bucket.
+    -> the batch's streams."""
     import torch
     from mrcaudiocodec_tpu_torch import corpus
-    from mrcaudiocodec_tpu_torch.config import CodecConfig, frames_for_samples
+    from mrcaudiocodec_tpu_torch.config import CodecConfig
     from mrcaudiocodec_tpu_torch.models import codec
-    from mrcaudiocodec_tpu_torch.profiling import kernel_device_totals
     n_clips, seconds = 64, 10.0
     cfg = CodecConfig(fs=44100, channels=2, bitrate=128000)
     clips = corpus._synth_corpus(n_clips, seconds)
@@ -2405,15 +2209,12 @@ def phase_corpus(dev):
     torch.cuda.reset_peak_memory_stats()
     for k in kernels:
         k.launches = 0
-    t0 = time.perf_counter()
     outs = corpus.encode_batch(clips, cfg, device=dev)
     torch.cuda.synchronize()
-    first_ms = (time.perf_counter() - t0) * 1e3
     launches = {k.__name__.rsplit(".", 1)[-1]: k.launches for k in kernels}
     peak = torch.cuda.max_memory_allocated()
     log(f"[corpus] {n_clips} x {seconds:g} s stereo 128 kbps fused on the "
-        f"card: first run {first_ms:.1f} ms, launches {launches}, peak "
-        f"device memory {peak} B")
+        f"card: launches {launches}, peak device memory {peak} B")
     for name, n in launches.items():
         check((n > 0) != (name in SYNTHESIS),
               f"the corpus batch launched {name} {n} times")
@@ -2429,42 +2230,7 @@ def phase_corpus(dev):
     log(f"[corpus] mixed-length bucket (0.25-0.62 s, 5 clips) == per-clip "
         f"encodes: {ok}")
     check(ok, "a mixed-length bucket stream differs from per-clip encodes")
-
-    walls = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        corpus.encode_batch(clips, cfg, device=dev)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    prof, rows = profile_once(
-        lambda: corpus.encode_batch(clips, cfg, device=dev))
-    busy = sum(r[1] for r in rows)
-    tot = kernel_device_totals(prof, [f"{k}_kernel" for k in KERNELS])
-    audio = sum(x.shape[0] for x in clips) / cfg.fs
-    frames = sum(frames_for_samples(x.shape[0]) for x in clips) * cfg.channels
-    best = min(walls)
-    stats = {"clips": len(clips), "audio_seconds": audio, "wall_ms": walls,
-             "best_ms": best, "median_ms": float(np.median(walls)),
-             "realtime_factor": audio * 1e3 / best,
-             "frames_per_second": frames * 1e3 / best,
-             "peak_bytes": peak, "device_ms": busy,
-             "busy_share": busy / best if busy else None,
-             "launches": launches,
-             "kernel_device": {k: tot[f"{k}_kernel"] for k in KERNELS}}
-    kern = sum(ms for _, ms in stats["kernel_device"].values())
-    stats["outside_kernels_ms"] = busy - kern
-    log(f"[corpus] device time outside K1-K10: {busy - kern:.2f} ms of "
-        f"{busy:.2f} ({(busy - kern) / busy:.3f} of it); K1-K10 "
-        f"{kern:.2f} ms")
-    log(f"[corpus] wall ms {walls} (best {best:.1f}, median "
-        f"{stats['median_ms']:.1f}); RTF {stats['realtime_factor']:.1f}x; "
-        f"{stats['frames_per_second']:.0f} frames/s; device time "
-        f"{busy:.2f} ms in one profiled batch, busy share "
-        f"{stats['busy_share']}; " + ", ".join(
-            f"K{i + 1} {tot[k + '_kernel']}" for i, k in enumerate(KERNELS))
-        + " (launches, device ms)")
-    return launches, stats, outs
+    return outs
 
 
 def phase_cli(dev):
@@ -2473,7 +2239,6 @@ def phase_cli(dev):
     import os
     import tempfile
     from mrcaudiocodec_tpu_torch import audiofile
-    from mrcaudiocodec_tpu_torch.bench import make_clip
     from mrcaudiocodec_tpu_torch.config import CodecConfig
     from mrcaudiocodec_tpu_torch.models import codec
     root = os.path.dirname(os.path.abspath(__file__))
@@ -2511,7 +2276,6 @@ def phase_cli(dev):
 def parallel_clips():
     """The clips of the two-process GroupShards encode: the benchmark clip
     and a 7.3 s stereo int16 clip (one dtype, mixed lengths)."""
-    from mrcaudiocodec_tpu_torch.bench import make_clip, to_i16
     cfg, xi = full_clip()
     return cfg, [xi, to_i16(make_clip(44100, 7.3, 2, seed=9))]
 
@@ -2565,8 +2329,8 @@ def group_shards_worker(rank, world, port, out_dir):
 
 
 def phase_parallel(dev, corpus_streams, err):
-    """The parallel path on the card (phase 12 of the module docstring).
-    corpus_streams: phase 10's 64 fused streams; err: max |err| by kernel,
+    """The parallel path on the card (phase 11 of the module docstring).
+    corpus_streams: phase 9's 64 fused streams; err: max |err| by kernel,
     updated with this path's own inputs held to the plain versions.
     -> stats."""
     import os
@@ -2576,7 +2340,6 @@ def phase_parallel(dev, corpus_streams, err):
     from mrcaudiocodec_tpu_torch import audiofile, corpus
     from mrcaudiocodec_tpu_torch.config import CodecConfig, frames_for_samples
     from mrcaudiocodec_tpu_torch.models import codec
-    from mrcaudiocodec_tpu_torch.bench import make_clip
     from mrcaudiocodec_tpu_torch.parallel import launch, mesh, sharded
     from mrcaudiocodec_tpu_torch.profiling import capture_inputs
     t_phase = time.perf_counter()
@@ -2675,7 +2438,7 @@ def phase_parallel(dev, corpus_streams, err):
     check(got3 == want3, "config 3 sharded at (1, 4) differs")
     outs = encode(clips, cfg, 4, 2)
     same = sum(o == w for o, w in zip(outs, corpus_streams))
-    log(f"[parallel] (a) 64 x 10 s batch at (4, 2): streams == phase 10's "
+    log(f"[parallel] (a) 64 x 10 s batch at (4, 2): streams == phase 9's "
         f"fused streams: {same}/{len(clips)}")
     check(same == len(clips), "a sharded corpus stream differs")
     enc_launch = read_counts()
@@ -2856,78 +2619,6 @@ def phase_parallel(dev, corpus_streams, err):
     return stats
 
 
-BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "seg_snr_db",
-              "seg_snr_spec_db", "seg_snr_vs_spec_db", "psnr_db",
-              "psnr_spec_db", "device_resident_rtf", "stream_matches_spec"}
-
-
-def phase_bench(smi):
-    """The port's bench on the card (phase 13 of the module docstring);
-    its stderr is logged here line by line. -> (launches, JSON result)."""
-    import contextlib
-    import io
-    import torch
-    from mrcaudiocodec_tpu_torch import bench
-    from mrcaudiocodec_tpu_torch.ops import device_pack, rd
-    kernels = kernel_modules()
-    fft_stages, quant_cost = kernels[:2]
-    plains = ((fft_stages, "fft_plain"), (quant_cost, "payload_bits_plain"),
-              (device_pack, "pack_stream_plain"), (rd, "rd_loop_plain"),
-              *((m, f"{n}_plain") for m, n in zip(kernels[4:8], ANALYSIS)),
-              *((m, f"{n}_plain") for m, n in zip(kernels[8:], SYNTHESIS)))
-    plain_calls = {attr: 0 for _, attr in plains}
-    saved = [getattr(mod, attr) for mod, attr in plains]
-    for (mod, attr), orig in zip(plains, saved):
-        def counted(*a, _orig=orig, _attr=attr):
-            plain_calls[_attr] += 1
-            return _orig(*a)
-        setattr(mod, attr, counted)
-    out, err = io.StringIO(), io.StringIO()
-    torch.cuda.synchronize()
-    for k in kernels:
-        k.launches = 0
-    t0 = time.perf_counter()
-    try:
-        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-            rc = bench.main(["--full", "--kernels"])
-            torch.cuda.synchronize()
-    finally:
-        for (mod, attr), orig in zip(plains, saved):
-            setattr(mod, attr, orig)
-        for line in err.getvalue().splitlines():
-            log(f"[bench] {line}")
-    dt = time.perf_counter() - t0
-    launches = {k.__name__.rsplit(".", 1)[-1]: k.launches for k in kernels}
-    lines = out.getvalue().strip().splitlines()
-    log(f"[bench] bench.main(['--full', '--kernels']): exit {rc} in "
-        f"{dt:.1f} s; K1-K10 launches {launches}; plain versions called "
-        f"{plain_calls}; stdout {lines}")
-    check(rc == 0 and len(lines) == 1, "the bench did not print one line")
-    res = json.loads(lines[0])
-    log(f"[bench] {smi}: " + "; ".join(f"{k} {v}" for k, v in res.items()))
-    check(set(res) == BENCH_KEYS, f"bench keys {sorted(res)}")
-    check(res["stream_matches_spec"] is True,
-          "the bench's stream differs from the spec's")
-    check(res["seg_snr_vs_spec_db"] == 0.0
-          and res["psnr_db"] == res["psnr_spec_db"],
-          "the bench's quality differs from the spec's")
-    for name, n in launches.items():
-        check(n > 0, f"the bench launched no {name}")
-    check(not any(plain_calls.values()),
-          f"a plain version ran on the bench's path: {plain_calls}")
-    dec = [line for line in err.getvalue().splitlines()
-           if line.startswith("device-resident decode launches: ")]
-    check(len(dec) == 1, "the bench logged no device-resident decode "
-          "launches")
-    got = json.loads(dec[0].split(": ", 1)[1])
-    slabs = got.pop("slabs")
-    want = {**{k: 0 for k in KERNELS}, "fft_stages": 2 * slabs,
-            **{k: slabs for k in SYNTHESIS}}
-    check(got == want, f"the bench's device-resident decode launched {got}, "
-          f"not K9, K1 x 2 and K10 a slab")
-    return launches, res
-
-
 def main() -> int:
     try:
         import torch
@@ -2954,14 +2645,11 @@ def main() -> int:
     phase_goldens(dev)
     phase_card_vs_cpu(dev)
     launches, stats = phase_full(dev)
-    stats["decide"] = phase_breakdown(dev)
     probe_launches, probe_stats = phase_probes(dev)
-    _, corpus_stats, corpus_streams = phase_corpus(dev)
+    corpus_streams = phase_corpus(dev)
     phase_cli(dev)
     parallel_stats = phase_parallel(dev, corpus_streams, errs)
     del corpus_streams
-    torch.cuda.empty_cache()
-    _, bench_res = phase_bench(smi)
     meta = {
         "fft_stages": ("cuda", "mrcaudiocodec_tpu_torch/csrc/fft_stages.cu",
                        "mrcaudiocodec_tpu/ops/pallas/xmath_kernel.py:93"),
@@ -3029,9 +2717,7 @@ def main() -> int:
                         "launches": probe_launches[body], "checked": True,
                         **probe_stats[body]})
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s; "
-        f"stats {json.dumps(stats)}; corpus {json.dumps(corpus_stats)}; "
-        f"parallel {json.dumps(parallel_stats)}; bench "
-        f"{json.dumps(bench_res)}")
+        f"stats {json.dumps(stats)}; parallel {json.dumps(parallel_stats)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,11 +2,16 @@
 
 A second package beside the JAX reference `mrcaudiocodec_tpu`, with the
 same layout: `config`, `tables`, `utils/bits`, `bitstream`, `xmath`,
-`xpsy`, `ops/{dsp,psycho,quantize,reservoir,entropy,rd}`,
-`ops/kernels/{fft_stages,quant_cost}` (CUDA sources under `csrc/`),
-`models/{packing,encoder,decoder,codec}`, `native/`, `corpus`, `cli`,
-`probes/` and `parallel/{mesh,sharded,launch}`. It imports torch and
-numpy, never JAX or the JAX package.
+`xpsy`, `audiofile`, `ops/{dsp,psycho,quantize,reservoir,entropy,rd,
+device_pack}`, `ops/kernels/` (the CUDA kernels K1-K12 and their plain
+versions: `fft_stages`, `quant_cost`, `record_pack`, `rd_loop`,
+`transients`, `analysis_pre`, `mdct_post`, `psycho`, `synth_pre`,
+`synth_post`, `pad_rows`, `budget_scan`; sources under `csrc/`),
+`models/{packing,encoder,decoder,codec}`, `native/`, `spec/` (its own
+NumPy spec codec), `corpus`, `cli`, `trace` (the encode path's spans and
+counters), `profiling` (kernel bounds and device times), `probes/` and
+`parallel/{mesh,sharded,launch}`. It imports torch and numpy, never JAX
+or the JAX package.
 
 Entry points: `models.codec.encode(x, cfg, device="cuda")` and
 `models.codec.decode(data, device="cuda", pcm_dtype="float32")`.

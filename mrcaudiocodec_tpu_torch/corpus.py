@@ -10,10 +10,9 @@ encoding each clip alone. Across processes, `parallel/launch.py corpus`
 splits the files by rank.
 
     python -m mrcaudiocodec_tpu_torch.corpus run INDIR OUTDIR --bitrate 128
-    python -m mrcaudiocodec_tpu_torch.corpus bench --clips 64 --seconds 10
 
-Both run on the card unless `--device cpu` is given; without CUDA they
-exit non-zero.
+It runs on the card unless `--device cpu` is given; without CUDA it exits
+non-zero.
 """
 from __future__ import annotations
 
@@ -231,15 +230,6 @@ def _synth_corpus(n_clips, seconds, fs=44100, channels=2, seed=0):
     return clips
 
 
-def _sync(device) -> str:
-    """Wait for the card (if `device` is one); -> the device's name."""
-    if not str(device).startswith("cuda"):
-        return "cpu"
-    import torch
-    torch.cuda.synchronize()
-    return torch.cuda.get_device_name(0)
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="mrcaudiocodec_tpu_torch.corpus")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -248,11 +238,6 @@ def main(argv=None):
     pr.add_argument("outdir")
     pr.add_argument("--bitrate", type=int, default=128)
     pr.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
-    pb = sub.add_parser("bench")
-    pb.add_argument("--clips", type=int, default=64)
-    pb.add_argument("--seconds", type=float, default=10.0)
-    pb.add_argument("--bitrate", type=int, default=128)
-    pb.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     args = ap.parse_args(argv)
     try:
         encoder.device_for(args.device)
@@ -260,29 +245,10 @@ def main(argv=None):
         raise SystemExit("error: no CUDA card is available; run with "
                          "--device cpu") from None
 
-    if args.cmd == "run":
-        paths = sorted(glob.glob(os.path.join(args.indir, "*.wav")))
-        stats = run_corpus(paths, args.outdir,
-                           {"bitrate": args.bitrate * 1000},
-                           device=args.device)
-        print(json.dumps(stats))
-        return 0
-
-    cfg = CodecConfig(fs=44100, channels=2, bitrate=args.bitrate * 1000)
-    clips = _synth_corpus(args.clips, args.seconds)
-    encode_batch(clips[:2], cfg, args.device)         # warm-up
-    _sync(args.device)
-    t0 = time.perf_counter()
-    encode_batch(clips, cfg, args.device)
-    name = _sync(args.device)
-    dt = time.perf_counter() - t0
-    audio = args.clips * args.seconds
-    nf = frames_for_samples(int(44100 * args.seconds)) * 2 * args.clips
-    print(json.dumps({
-        "device": name, "clips": args.clips, "audio_seconds": audio,
-        "wall_seconds": dt, "realtime_factor": audio / dt,
-        "frames_per_second": nf / dt,
-    }))
+    paths = sorted(glob.glob(os.path.join(args.indir, "*.wav")))
+    stats = run_corpus(paths, args.outdir, {"bitrate": args.bitrate * 1000},
+                       device=args.device)
+    print(json.dumps(stats))
     return 0
 
 

@@ -359,32 +359,20 @@ def clip_slices(body, nbytes, counts) -> list[memoryview]:
         return [view[a:b] for a, b in zip(at[:-1], at[1:])]
 
 
-def encode_chunks(audio, orders, spans, nf_row, cfg: CodecConfig, cap: int):
-    """The device stages of an encode. audio: each chunk of `spans` on the
-    device (K11's `pad_rows.pad_rows`, or `upload_chunk`), orders: each
-    chunk's stream order on the device (`stream_order`), both iterables
-    read in chunk order -> each chunk's packed (body, nbytes, status),
-    yielded in turn: every chunk analysed, the budgets of each whole row
-    (`reservoir.allocate`, K12), then per chunk the RD loop and codebooks
-    (`decide_chunk`, K2) and the record pack (`pack_chunk`, K3, which
-    reads its 8-byte status)."""
-    chunks = [_analyze_chunk(a, cfg) for a in audio]
-    budgets = _budgets(chunks, cfg, nf_row)
-    for ch, (f0, s), order in zip(chunks, spans, orders):
-        yield pack_chunk(decide_chunk(ch, budgets[:, f0:f0 + s], cfg), order,
-                         cfg, cap)
-
-
 def encode_rows(pcm: PCM, nf: int, nf_row, cfg: CodecConfig,
                 headers: list[bytes]) -> list[bytes]:
     """The clips' samples on a device (`upload_pcm`; int16 or float32),
     the frames of every row (nf, at least each clip's), each row's true
     frame count (None: all nf) and each clip's header -> each clip's
     stream, its body built on the samples' device. Clip j holds rows
-    j*nch .. j*nch + nch - 1, nch = cfg.channels. Each chunk's padded rows
-    are built on the device (K11) just before its analysis, and its body
-    downloaded before the next chunk is packed; a clip's stream is one
-    join of its header and its slices of the chunks' bodies."""
+    j*nch .. j*nch + nch - 1, nch = cfg.channels. Every chunk is analysed,
+    its padded rows built on the device (K11) just before; then the
+    budgets of each whole row (`reservoir.allocate`, K12); then per chunk
+    its stream order uploaded, the RD loop and codebooks (`decide_chunk`,
+    K2 and K4), the record pack (`pack_chunk`, K3, which reads its 8-byte
+    status) and its body downloaded before the next chunk is decided. A
+    clip's stream is one join of its header and its slices of the chunks'
+    bodies."""
     nch = cfg.channels
     dev = pcm.data.device
     rows = pcm.clips.shape[0] * nch
@@ -393,13 +381,16 @@ def encode_rows(pcm: PCM, nf: int, nf_row, cfg: CodecConfig,
         orders = [stream_order(nf_row, nch, f0, s, rows) for f0, s in spans]
     nf_dev = None if nf_row is None else trace.upload(
         np.asarray(nf_row, np.int64), dev)
-    packed = encode_chunks(
-        (pad_rows.pad_rows(pcm.data, pcm.clips, f0, s) for f0, s in spans),
-        (trace.upload(o, dev) for o, _ in orders),
-        spans, nf_dev, cfg, device_pack.pack_cap_bytes(cfg))
+    cap = device_pack.pack_cap_bytes(cfg)
+    chunks = [_analyze_chunk(pad_rows.pad_rows(pcm.data, pcm.clips, f0, s),
+                             cfg) for f0, s in spans]
+    budgets = _budgets(chunks, cfg, nf_dev)
     pieces = [[] for _ in range(rows // nch)]
-    for p, (_, counts) in zip(packed, orders):
-        for j, piece in enumerate(clip_slices(*download_body(p), counts)):
+    for ch, (f0, s), (order, counts) in zip(chunks, spans, orders):
+        order = trace.upload(order, dev)
+        body = download_body(pack_chunk(
+            decide_chunk(ch, budgets[:, f0:f0 + s], cfg), order, cfg, cap))
+        for j, piece in enumerate(clip_slices(*body, counts)):
             pieces[j].append(piece)
     with trace.span("mrc.assemble"):
         return [b"".join([h, *p]) for h, p in zip(headers, pieces)]

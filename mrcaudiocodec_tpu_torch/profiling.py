@@ -1,8 +1,8 @@
-"""Measurement helpers shared by the bench (`bench.py`) and chip_smoke.py.
+"""Measurement helpers of chip_smoke.py's kernel phases and the
+benchmark's work counts (`mrcbench/work`).
 
     card_line()                    the card's name and power limit
     device_ms(fn, ...)             profiler device ms per call of fn()
-    kernel_device_totals(prof, names)
     kernel_modules()               K1-K10's wrapper modules
     capture_inputs(run, per_key)   K1-K10 inputs recorded at their wrappers
     kernel_bound(key, args)        bytes, ops and op rate of one launch
@@ -121,19 +121,6 @@ def device_ms(fn, iters: int = 20, match=None, per_call: int = 1):
     log(f"[times] device ms not measured for {match or 'all kernels'}: the "
         f"traces held {seen} of {iters} x {per_call} launches")
     return None
-
-
-def kernel_device_totals(prof, names):
-    """{name: (launches, device ms)} summed over the profiled run's
-    kernels whose name holds `name`."""
-    out = {n: (0, 0.0) for n in names}
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", 0)
-        for n in names:
-            if n in e.key and t > 0:
-                c, ms = out[n]
-                out[n] = (c + e.count, ms + t / 1e3)
-    return out
 
 
 def kernel_modules():

@@ -517,11 +517,3 @@ def test_k5_tile_map_covers_every_frame_once(rows, s, stride):
         assert tile == 10 and blocks >= 132
     if (rows, s) == (128, 64):
         assert tile == 13 and max(idle) <= 2
-
-
-def test_analyze_turns_needs_a_card(tmp_path):
-    """The in-turns measurement is card only: without a card it exits 2."""
-    if torch.cuda.is_available():
-        pytest.skip("a card is present")
-    from mrcaudiocodec_tpu_torch import analyze_turns
-    assert analyze_turns.main([str(tmp_path)]) == 2

@@ -297,7 +297,7 @@ def test_kernel_on_the_cells_own_pe(cell, monkeypatch):
     captured at the kernel's wrapper during an encode: one launch a
     request, == the plain version and the torch scan."""
     _need_card()
-    from mrcaudiocodec_tpu_torch.bench import make_clip, to_i16
+    from mrcbench import gen
     from mrcaudiocodec_tpu_torch.models import codec
     caps = []
     orig = budget_scan.budget_scan_kernel
@@ -308,7 +308,8 @@ def test_kernel_on_the_cells_own_pe(cell, monkeypatch):
     monkeypatch.setattr(budget_scan, "budget_scan_kernel", rec)
     counted = trace.counters().get("budget.kernel", 0)
     if cell == "clip":
-        codec.encode(to_i16(make_clip(44100, 30.0, 2)), REAL, device="cuda")
+        codec.encode(gen.to_i16(gen.music(44100, 30.0, 2, 0, 0)), REAL,
+                     device="cuda")
     else:
         corpus.encode_batch(corpus._synth_corpus(64, 10.0), REAL,
                             device="cuda")

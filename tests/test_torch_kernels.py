@@ -1112,11 +1112,12 @@ def test_30s_decode_launches_and_one_download_on_card():
     the CPU decode by bits."""
     _need_card()
     from torch.profiler import ProfilerActivity, profile
-    from mrcaudiocodec_tpu_torch.bench import make_clip, to_i16
+    from mrcbench import gen
     from mrcaudiocodec_tpu_torch.config import CodecConfig
     from mrcaudiocodec_tpu_torch.models import codec
     cfg = CodecConfig(fs=44100, channels=2, bitrate=128000)
-    bs = codec.encode(to_i16(make_clip(44100, 30.0, 2)), cfg, device="cuda")
+    bs = codec.encode(gen.to_i16(gen.music(44100, 30.0, 2, 0, 0)), cfg,
+                      device="cuda")
     mods = (fft_stages, quant_cost, record_pack, rd_loop, transients,
             analysis_pre, mdct_post, psycho, synth_pre, synth_post)
     names = {m.__name__.rsplit(".", 1)[-1] for m in mods}
