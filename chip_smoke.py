@@ -5,7 +5,7 @@
 
 Phases, in order; any failure raises, so the exit code is non-zero:
   1. card: name and power limit (nvidia-smi), CUDA version, capability 9.0
-  2. build: the main path's twelve CUDA kernels from csrc/ (nvcc, one
+  2. build: the main path's thirteen CUDA kernels from csrc/ (nvcc, one
      process per source started together, -Xptxas -v per kernel); K4's
      blocks resident an SM (the occupancy calculator), at least 7, and
      K8's frames in flight an SM, at least 20 (2 blocks of 10 warps)
@@ -44,7 +44,10 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      decode's own inputs (2048 and 538 frame rows, K10 the same ways);
      K12 budget_scan at 1 .. 12920 frames x 1, 2, 128 rows, PE of music,
      zeros and edges, row frame counts none / all / mixed / 1, two rates,
-     each one launch with no synchronize, against its plain version
+     each one launch with no synchronize, against its plain version; K13
+     codebook_choice at 1, 31, 2586 and 8192 frames x 3 rates, q drawn
+     so that every codebook wins, CB_MID ties CB_ESC and |q| reaches
+     QMAX, each one launch with no synchronize, against its plain version
   4. on those captured inputs, each kernel's time (CUDA events, and the
      profiler's device time per launch) beside its plain version's, one
      PyTorch library call where one exists (torch.fft.fft for K1) and the
@@ -69,8 +72,13 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      and one 64 x 10 s batch ([128, 448]) and on the clip's PE tiled to
      [2, 12920]: == its plain version and the torch scan it replaced, its
      event, device and host ms beside the torch scan's (and its launches
+     a call) and its byte bound, its SASS audit; K13 codebook_choice on
+     its inputs captured at its wrapper from one 30 s encode (one launch,
+     2586 frame rows) and one 64 x 10 s batch (7 launches of 8192): each
+     == its plain version, its event, device and host ms beside the plain
+     version's on the card (the torch code it replaced, and its launches
      a call) and its byte bound, its SASS audit; the SASS instruction mix
-     of K1-K12
+     of K1-K13
   5. goldens g1-g6 encoded on the card (records built by K3) against their
      SHA-256 digests; each decoded on the card and on the CPU, PCM bitwise
      equal
@@ -79,9 +87,10 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      decodes equal
   7. full size: the benchmark clip (30 s stereo 44.1 kHz 128 kbps, int16)
      encoded and decoded on the card, kernel launch counts of that run (K4
-     once and K2 twice a chunk, K5-K8 once and K1 four times a chunk in
-     the encode, no RD host sync; K9 and K10 once and K1 twice a chunk in
-     the decode, nothing else), no plain version of K1-K12 (nor the torch
+     and K13 once and K2 twice a chunk, K5-K8 once and K1 four times a
+     chunk in the encode, no RD host sync; K9 and K10 once and K1 twice a
+     chunk in the decode, nothing else), no plain version of K1-K13 (nor
+     the torch
      budget scan) called in either, the plain path's host syncs on the
      same clip beside them; one profiled decode makes one download; the
      analysis of the clip's chunk alone launches K5, K6, K1 x 4, K7, K8
@@ -106,14 +115,16 @@ Phases, in order; any failure raises, so the exit code is non-zero:
      and the WAV == codec.decode on the card
  11. the parallel path (parallel/), on the card: acceptance config 3 (5 min
      48 kHz stereo 192 kbps) encoded on the card == its card encode with
-     K1-K10 swapped for their plain versions, its card decode == the
+     K1-K10 swapped for their plain versions (K11-K13 stay kernels), its
+     card decode == the
      decode with K9 and K10 swapped for theirs; (a) sharded encode, every
      shard in turn in this process (LocalShards): the 30 s clip at (data,
      seq) = (1, 4), (2, 2), (2, 1) == codec.encode, config 3 at (1, 4) ==
      its unsharded encode, the 64 x 10 s batch at (4, 2) == phase 9's
      streams; (b) sharded decode of the 30 s stream at (1, 4), (2, 2) ==
-     codec.decode float32 bitwise; the K1-K10 launch counts of (a) and of
-     (b) (the decodes: K9, K1, K10 only); K1-K10 held bitwise to their plain versions on the inputs the
+     codec.decode float32 bitwise; the K1-K10 and K13 launch counts of
+     (a) and of (b) (K13 and K4 once a shard chunk in (a); the decodes:
+     K9, K1, K10 only); K1-K10 held bitwise to their plain versions on the inputs the
      (1, 4) encodes and decode gave them (captured at the wrappers, every
      shard's); walls of (a) at (1, 4) beside the unsharded encode; (c)
      corpus.encode_batch over devices ["cuda:0", "cuda:0"] == the
@@ -321,9 +332,11 @@ def rd_exits() -> int:
 def plain_path(run, names=KERNELS):
     """run() with the named kernels' wrappers (default K1-K10) replaced by
     their plain PyTorch versions (on the same card) -> what run()
-    returns. K4's plain version takes its payloads from K2's wrapper, so
-    names=("rd_loop",) is the path before K4: the loop in PyTorch, K2 for
-    every sweep."""
+    returns. K11-K13 (pad_rows, budget_scan, codebook_choice) are never
+    swapped: they stay kernels on this path, and their plain versions are
+    held to them on their own inputs in phases 3 and 4. K4's plain version
+    takes its payloads from K2's wrapper, so names=("rd_loop",) is the
+    path before K4: the loop in PyTorch, K2 for every sweep."""
     from mrcaudiocodec_tpu_torch.ops import rd
     attrs = {"fft_stages": "fft_kernel", "quant_cost": "payload_bits_kernel",
              "record_pack": "pack_stream_kernel",
@@ -549,6 +562,7 @@ def phase_kernels(dev):
             before = (args[:4], args[4])
     rd_sets = phase_kernels_rd_loop(dev, inputs, err)
     k12_hold(dev)
+    k13_hold(dev)
     return err, inputs, rd_sets
 
 
@@ -624,6 +638,86 @@ def k12_hold(dev):
         f"no synchronize each, in {n} cases ({len(K12_FRAMES)} frame "
         f"counts x {len(K12_ROWS)} row counts x 3 PE kinds x 4 frame-count "
         f"kinds x 2 rates)")
+
+
+K13_FRAMES = (1, 31, 2586, 8192)
+
+
+def k13_inputs(frames, fs, rng):
+    """K13's inputs (q, amp, gain, bt), int32 on the host: each band of
+    each frame all zero, |q| <= 1, <= 4, <= 16, escapes up to QMAX (1, 4,
+    15, 16, 17 and QMAX half of them), or a 4-tuple among zeros whose
+    CB_MID and CB_ESC lengths tie; bt cycles through the block types."""
+    import itertools
+
+    import torch
+    from mrcaudiocodec_tpu_torch import config as C
+    from mrcaudiocodec_tpu_torch import tables as T
+    from mrcaudiocodec_tpu_torch.spec import entropy as sent
+    tups = np.array(list(itertools.product(range(-4, 5), repeat=4)))
+    probe = np.zeros((len(tups), C.LONG_COEFFS), np.int64)
+    probe[:, :4] = tups
+    costs = sent.payload_costs(probe, np.array([0, 4, C.LONG_COEFFS]))[0]
+    ties = tups[(costs[:, 0, 2] == costs[:, 0, 3])
+                & (np.abs(tups).max(1) > 1)]
+    lay = T.unified_layout(fs)
+    nb = lay["nb"]
+    bt = ((np.arange(frames) + rng.integers(0, C.N_BLOCK_TYPES))
+          % C.N_BLOCK_TYPES).astype(np.int32)
+    kind = rng.integers(0, 6, (frames, nb))
+    k = np.take_along_axis(kind, lay["bin_band"][bt], 1)
+    sign = np.where(rng.random(k.shape) < 0.5, -1, 1)
+    dense = rng.random(k.shape) < rng.uniform(0.1, 1.0, (frames, 1))
+    special = rng.choice((1, 4, 15, 16, 17, C.QMAX), k.shape)
+    mag = np.select([k == 1, k == 2, k == 3],
+                    [rng.integers(0, 2, k.shape), rng.integers(0, 5, k.shape),
+                     rng.integers(0, 17, k.shape)],
+                    np.where(rng.random(k.shape) < 0.5, special,
+                             rng.integers(0, C.QMAX + 1, k.shape)))
+    q = np.where((k == 0) | (k == 5) | ~dense, 0, sign * mag)
+    edges = lay["edges"]
+    for f, b in zip(*np.nonzero(kind == 5)):
+        lo, hi = edges[bt[f], b] // 4, edges[bt[f], b + 1] // 4
+        if hi > lo:
+            u = rng.integers(lo, hi)
+            q[f, 4 * u:4 * u + 4] = ties[rng.integers(0, len(ties))]
+    amp = rng.integers(0, C.AMP_MAX + 1, (frames, nb))
+    gain = rng.integers(C.GAIN_MIN, C.GAIN_MAX + 1, frames)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a, np.int32))
+                 for a in (q, amp, gain, bt))
+
+
+def k13_hold(dev):
+    """K13 against its plain version, bit for bit (phase 3): 1, 31, 2586
+    and 8192 frames x 44.1, 48 and 32 kHz (k13_inputs), each one launch
+    with no synchronize (the sync debug mode raises on one) against the
+    plain version on the CPU."""
+    import torch
+    from mrcaudiocodec_tpu_torch.ops.kernels import codebook_choice
+    rng = np.random.default_rng(2027)
+    n = 0
+    for frames in K13_FRAMES:
+        for fs in (44100, 48000, 32000):
+            args = k13_inputs(frames, fs, rng)
+            dev_args = [a.to(dev) for a in args]
+            codebook_choice.codebook_choice_kernel(*dev_args, fs)
+            torch.cuda.synchronize()
+            before = codebook_choice.launches
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = codebook_choice.codebook_choice_kernel(*dev_args, fs)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            want = codebook_choice.codebook_choice_plain(*args, fs)
+            ok = (codebook_choice.launches == before + 1
+                  and all(g.dtype == w.dtype and bits_equal(g, w)
+                          for g, w in zip(got, want)))
+            check(ok, f"codebook_choice {frames} frames fs={fs}: not one "
+                  f"launch, or differs from its plain version")
+            n += 1
+    log(f"[kernels] codebook_choice: kernel == plain bitwise (q16, amp8, "
+        f"gain16, bt8, cb8), one launch and no synchronize each, in {n} "
+        f"cases ({len(K13_FRAMES)} frame counts x 3 rates)")
 
 
 def log_rd_corners(where, args):
@@ -1236,18 +1330,21 @@ def phase_card_vs_cpu(dev):
 
 
 def plain_versions():
-    """(module, attribute) of every kernel's plain version, K1-K12, and of
+    """(module, attribute) of every kernel's plain version, K1-K13, and of
     the torch budget scan K12 replaced: none of them may run on the card
     path."""
     from mrcaudiocodec_tpu_torch.ops import device_pack, rd, reservoir
-    from mrcaudiocodec_tpu_torch.ops.kernels import budget_scan, pad_rows
+    from mrcaudiocodec_tpu_torch.ops.kernels import (budget_scan,
+                                                     codebook_choice,
+                                                     pad_rows)
     kernels = kernel_modules()
     return ((kernels[0], "fft_plain"), (kernels[1], "payload_bits_plain"),
             (device_pack, "pack_stream_plain"), (rd, "rd_loop_plain"),
             *((m, f"{n}_plain") for m, n in zip(kernels[4:8], ANALYSIS)),
             *((m, f"{n}_plain") for m, n in zip(kernels[8:], SYNTHESIS)),
             (pad_rows, "pad_rows_plain"), (budget_scan, "budget_scan_plain"),
-            (reservoir, "allocate_scan"))
+            (reservoir, "allocate_scan"),
+            (codebook_choice, "codebook_choice_plain"))
 
 
 @contextlib.contextmanager
@@ -1274,6 +1371,7 @@ def phase_full(dev):
     import torch
     from mrcaudiocodec_tpu_torch import config as C
     from mrcaudiocodec_tpu_torch.models import codec, decoder, encoder
+    from mrcaudiocodec_tpu_torch.ops.kernels import codebook_choice
     seconds = 30.0
     cfg, xi = full_clip()
     x = xi.astype(np.float32) / np.float32(32768.0)
@@ -1285,30 +1383,35 @@ def phase_full(dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with plain_calls() as plain:
-        for k in kernels:
+        for k in kernels + (codebook_choice,):
             k.launches = 0
         s0 = rd_exits()
         bs = codec.encode(xi, cfg, device=dev)
         torch.cuda.synchronize()
         enc_launch = {k.__name__.rsplit(".", 1)[-1]: k.launches
                       for k in kernels}
+        enc_k13 = codebook_choice.launches
         syncs = rd_exits() - s0
         enc_peak = torch.cuda.max_memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         for k in kernels:
             k.launches = 0
+        codebook_choice.launches = 0
         y, _ = codec.decode(bs, device=dev)
         torch.cuda.synchronize()
         dec_launch = {k.__name__.rsplit(".", 1)[-1]: k.launches
                       for k in kernels}
+        dec_k13 = codebook_choice.launches
         dec_peak = torch.cuda.max_memory_allocated()
     s0 = rd_exits()
     bs_plain = plain_path(lambda: codec.encode(xi, cfg, device=dev))
     plain_syncs = rd_exits() - s0
-    log(f"[full] launches in one encode ({chunks} chunk): {enc_launch}; in "
+    log(f"[full] launches in one encode ({chunks} chunk): {enc_launch}, "
+        f"codebook_choice {enc_k13}; in "
         f"one decode ({dec_chunks} chunks): {dec_launch}; RD loop-exit host "
         f"syncs in the encode: {syncs}; plain versions called in the encode "
-        f"and decode: {plain}; the same encode with K1-K10 plain: "
+        f"and decode: {plain}; the same encode with K1-K10 plain (K11-K13 "
+        f"kernels): "
         f"{plain_syncs} host syncs, stream equal: {bs_plain == bs}")
     check(enc_launch["fft_stages"] == 4 * chunks,
           f"encode launched fft_stages {enc_launch['fft_stages']} times, "
@@ -1324,6 +1427,9 @@ def phase_full(dev):
     check(enc_launch["rd_loop"] == chunks,
           f"encode launched rd_loop {enc_launch['rd_loop']} times, not once "
           f"a chunk")
+    check(enc_k13 == chunks and dec_k13 == 0,
+          f"encode launched codebook_choice {enc_k13} times, not once a "
+          f"chunk, and the decode {dec_k13} times")
     check(syncs == 0, f"the card encode ran the plain RD loop ({syncs} host "
           f"syncs)")
     check(not any(plain.values()),
@@ -1350,6 +1456,7 @@ def phase_full(dev):
         f"decode {dec_peak} B")
     full_alone(dev, cfg, xi, bs)
     launches = {k: enc_launch[k] + dec_launch[k] for k in enc_launch}
+    launches["codebook_choice"] = enc_k13 + dec_k13
     return launches, stats
 
 
@@ -1697,6 +1804,7 @@ def phase_times(dev, inputs, rd_sets):
     out["synth_post"]["locate"] = k10_locate(inputs)
     out["pad_rows"] = k11_hold_and_time(dev)
     out["budget_scan"] = k12_hold_and_time(dev)
+    out["codebook_choice"] = k13_hold_and_time(dev)
     log_instruction_mix()
     return out
 
@@ -1818,6 +1926,100 @@ def k12_hold_and_time(dev):
     log(f"[kernels] SASS audit libbudget_scan.so: {ffma} FFMA, {ftz} .FTZ "
         f"in {len(audit)} kernels")
     check(ffma == 0 and ftz == 0, "libbudget_scan.so holds FFMA or .FTZ")
+    return out
+
+
+def k13_bytes(nf: int, nb: int) -> int:
+    """K13's bytes on the card: q, amp, gain and bt read once, the five
+    narrow outputs written once, the code tables and band maps once."""
+    return (nf * (4 * 1024 + 4 * nb + 8) + nf * (2 * 1024 + 2 * nb + 3)
+            + (81 + 2 * 33 * 33) * 4 + 5 * 256)
+
+
+def k13_hold_and_time(dev):
+    """K13 on the main path's own inputs, captured at its wrapper: one
+    30 s encode (one chunk, 2586 frame rows) and one 64 x 10 s batch (7
+    chunks of 8192). Each launch == its plain version on the CPU, bit for
+    bit; then K13's event, device and host ms at the encode's chunk and
+    the batch's first beside the plain version's on the card (the torch
+    choice and casts it replaced, its launches a call) and K13's byte
+    bound; and its library's SASS audit."""
+    import torch
+    from mrcaudiocodec_tpu_torch import corpus
+    from mrcaudiocodec_tpu_torch.models import codec
+    from mrcaudiocodec_tpu_torch.ops.kernels import build, codebook_choice
+    from mrcaudiocodec_tpu_torch.probes import fma_probe
+    from mrcaudiocodec_tpu_torch.profiling import HBM_BYTES_PER_S, device_ms
+    cfg, xi = full_clip()
+    caps = {"encode": [], "corpus": []}
+    where = ["encode"]
+    orig = codebook_choice.codebook_choice_kernel
+
+    def rec(*args):
+        caps[where[0]].append(args)     # K4's outputs are not written again
+        return orig(*args)
+    codebook_choice.codebook_choice_kernel = rec
+    try:
+        codec.encode(xi, cfg, device=dev)
+        where[0] = "corpus"
+        corpus.encode_batch(corpus._synth_corpus(64, 10.0), cfg, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        codebook_choice.codebook_choice_kernel = orig
+    for key, n in (("encode", 1), ("corpus", 7)):
+        check(len(caps[key]) == n, f"{key}: K13 launched {len(caps[key])} "
+              f"times, not once a chunk ({n})")
+    out = {"by_shape": {}}
+    for key, calls in caps.items():
+        for i, args in enumerate(calls):
+            got = orig(*args)
+            want = codebook_choice.codebook_choice_plain(
+                *(a.cpu() for a in args[:4]), args[4])
+            ok = all(g.dtype == w.dtype and bits_equal(g, w)
+                     for g, w in zip(got, want))
+            log(f"[kernels] codebook_choice on the {key} path's own input "
+                f"{tuple(args[0].shape)} (chunk {i}): kernel == plain "
+                f"bitwise: {ok}")
+            check(ok, f"codebook_choice {key} chunk {i} differs from its "
+                  f"plain version")
+        args = calls[0]
+        nf, nb = args[1].shape
+        run = (lambda a=args: orig(*a))
+        plain = (lambda a=args: codebook_choice.codebook_choice_plain(*a))
+        nbytes = k13_bytes(nf, nb)
+        line = dict(ms=cuda_ms(run, 50),
+                    device_ms=device_ms(run, 20,
+                                        match="codebook_choice_kernel"),
+                    host_ms=host_ms(run),
+                    plain_ms=cuda_ms(plain, 20),
+                    plain_device_ms=device_ms(plain, 10),
+                    plain_host_ms=host_ms(plain, 20),
+                    plain_launches=launches_a_call(plain),
+                    bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                    bound_by="bytes", bytes=nbytes)
+        out["by_shape"][f"{key} ({nf},)"] = line
+        ratio = (line["device_ms"] / line["bound_ms"]
+                 if line["device_ms"] else None)
+        log(f"[times] codebook_choice at the {key} chunk ({nf} frame rows, "
+            f"{nbytes} B): event {line['ms']:.4f} ms, device "
+            f"{line['device_ms']} ms, host {line['host_ms']:.4f} ms, bound "
+            f"{line['bound_ms']:.5f} ms (bytes), device over bound {ratio}; "
+            f"the plain version on the card: {line['plain_launches']} "
+            f"launches a call, event {line['plain_ms']:.4f} ms, device "
+            f"{line['plain_device_ms']} ms, host "
+            f"{line['plain_host_ms']:.4f} ms")
+    first = out["by_shape"][next(iter(out["by_shape"]))]
+    out.update({k: first[k] for k in ("ms", "device_ms", "plain_ms",
+                                      "bound_ms", "bound_by")},
+               library_ms=None)
+    audit = fma_probe.sass_counts(subprocess.run(
+        [fma_probe.cuobjdump(), "-sass", build._so("codebook_choice")],
+        capture_output=True, text=True, timeout=120, check=True).stdout)
+    ffma = sum(f["FFMA"] for f in audit.values())
+    ftz = sum(f["FTZ"] for f in audit.values())
+    log(f"[kernels] SASS audit libcodebook_choice.so: {ffma} FFMA, {ftz} "
+        f".FTZ in {len(audit)} kernels")
+    check(ffma == 0 and ftz == 0, "libcodebook_choice.so holds FFMA or .FTZ")
     return out
 
 
@@ -1943,7 +2145,7 @@ MIX_CLASSES = {
 
 
 def log_instruction_mix():
-    """Each K1-K12 kernel's SASS instructions (cuobjdump -sass), by
+    """Each K1-K13 kernel's SASS instructions (cuobjdump -sass), by
     class: the static counts the device times are read against (K1's
     kernels are straight-line code, K2's gain loop is unrolled over a
     lane's 8 tuples, 32 bins, K3's over a lane's 16 pairs, twice; K4
@@ -2344,7 +2546,9 @@ def phase_parallel(dev, corpus_streams, err):
     from mrcaudiocodec_tpu_torch.profiling import capture_inputs
     t_phase = time.perf_counter()
     root = os.path.dirname(os.path.abspath(__file__))
-    kernels = kernel_modules()
+    from mrcaudiocodec_tpu_torch.models import encoder
+    from mrcaudiocodec_tpu_torch.ops.kernels import codebook_choice
+    kernels = kernel_modules() + (codebook_choice,)
 
     def zero_counts():
         torch.cuda.synchronize()
@@ -2354,6 +2558,13 @@ def phase_parallel(dev, corpus_streams, err):
     def read_counts():
         torch.cuda.synchronize()
         return {k.__name__.rsplit(".", 1)[-1]: k.launches for k in kernels}
+
+    decides = [0]
+    decide_chunk = encoder.decide_chunk
+
+    def counted_decide(*args, **kw):
+        decides[0] += 1
+        return decide_chunk(*args, **kw)
 
     def encode(clips, cfg, n_data, n_seq):
         grid = mesh.make_grid(n_data, n_seq)
@@ -2377,12 +2588,13 @@ def phase_parallel(dev, corpus_streams, err):
     t0 = time.perf_counter()
     want3 = codec.encode(x3, cfg3, device=dev)
     t_un3 = time.perf_counter() - t0
-    # config 3's card stream held to the card encode with every kernel
-    # replaced by its plain version
+    # config 3's card stream held to the card encode with K1-K10 replaced
+    # by their plain versions (K11-K13 stay kernels)
     t0 = time.perf_counter()
     plain3 = plain_path(lambda: codec.encode(x3, cfg3, device=dev))
     log(f"[parallel] config 3 card stream == the card encode through the "
-        f"plain versions of K1-K10: {want3 == plain3} (plain run "
+        f"plain versions of K1-K10 (K11-K13 kept as kernels): "
+        f"{want3 == plain3} (plain run "
         f"{time.perf_counter() - t0:.2f} s host clock)")
     check(want3 == plain3, "config 3's card stream differs from its plain "
           "encode")
@@ -2414,6 +2626,7 @@ def phase_parallel(dev, corpus_streams, err):
 
     # (a) sharded encode, every shard in turn on this card
     zero_counts()
+    encoder.decide_chunk = counted_decide
     for n_data, n_seq in ((1, 4), (2, 2), (2, 1)):
         if (n_data, n_seq) == (1, 4):
             got = captured("sharded 30 s (1, 4) encode",
@@ -2436,16 +2649,26 @@ def phase_parallel(dev, corpus_streams, err):
         f"{t_un3:.2f} s, sharded with its inputs captured {t_sh3:.2f} s "
         f"host clock)")
     check(got3 == want3, "config 3 sharded at (1, 4) differs")
-    outs = encode(clips, cfg, 4, 2)
+    try:
+        outs = encode(clips, cfg, 4, 2)
+    finally:
+        encoder.decide_chunk = decide_chunk
     same = sum(o == w for o, w in zip(outs, corpus_streams))
     log(f"[parallel] (a) 64 x 10 s batch at (4, 2): streams == phase 9's "
         f"fused streams: {same}/{len(clips)}")
     check(same == len(clips), "a sharded corpus stream differs")
     enc_launch = read_counts()
-    log(f"[parallel] (a) launches in the sharded encodes: {enc_launch}")
+    log(f"[parallel] (a) launches in the sharded encodes: {enc_launch}; "
+        f"shard chunks decided: {decides[0]}")
     for name, n in enc_launch.items():
         check((n > 0) != (name in SYNTHESIS),
               f"the sharded encodes launched {name} {n} times")
+    check(enc_launch["codebook_choice"] == decides[0]
+          == enc_launch["rd_loop"],
+          f"the sharded encodes launched codebook_choice "
+          f"{enc_launch['codebook_choice']} times and rd_loop "
+          f"{enc_launch['rd_loop']} in {decides[0]} shard chunks, not "
+          f"once a chunk each")
 
     # (b) sharded decode
     zero_counts()
@@ -2462,7 +2685,7 @@ def phase_parallel(dev, corpus_streams, err):
     dec_launch = read_counts()
     log(f"[parallel] (b) launches in the sharded decodes: {dec_launch} "
         f"(a decode runs K9, K1 and K10 only)")
-    for name in KERNELS:
+    for name in (*KERNELS, "codebook_choice"):
         used = name in SYNTHESIS or name == "fft_stages"
         check((dec_launch[name] > 0) == used,
               f"the sharded decodes launched {name} {dec_launch[name]} "
@@ -2700,10 +2923,16 @@ def main() -> int:
         "cuda", "mrcaudiocodec_tpu_torch/csrc/budget_scan.cu",
         "none: lax.associative_scan, mrcaudiocodec_tpu/ops/reservoir.py "
         "(XLA; no pallas_call); the port's torch scan before it")
+    meta["codebook_choice"] = (
+        "cuda", "mrcaudiocodec_tpu_torch/csrc/codebook_choice.cu",
+        "none: mrcaudiocodec_tpu/ops/entropy.py:199 "
+        "payload_costs_and_choice (bf16 mask matmuls, XLA; no "
+        "pallas_call); the port's torch choice and casts before it")
     launches["pad_rows"] = times["pad_rows"].pop("launches")
     launches["budget_scan"] = times["budget_scan"].pop("launches")
     errs["pad_rows"] = 0.0
     errs["budget_scan"] = 0.0
+    errs["codebook_choice"] = 0.0
     kernels = []
     for name, (route, source, replaces) in meta.items():
         kernels.append({"name": name, "route": route, "source": source,

@@ -3,10 +3,11 @@
 A second package beside the JAX reference `mrcaudiocodec_tpu`, with the
 same layout: `config`, `tables`, `utils/bits`, `bitstream`, `xmath`,
 `xpsy`, `audiofile`, `ops/{dsp,psycho,quantize,reservoir,entropy,rd,
-device_pack}`, `ops/kernels/` (the CUDA kernels K1-K12 and their plain
+device_pack}`, `ops/kernels/` (the CUDA kernels K1-K13 and their plain
 versions: `fft_stages`, `quant_cost`, `record_pack`, `rd_loop`,
 `transients`, `analysis_pre`, `mdct_post`, `psycho`, `synth_pre`,
-`synth_post`, `pad_rows`, `budget_scan`; sources under `csrc/`),
+`synth_post`, `pad_rows`, `budget_scan`, `codebook_choice`; sources
+under `csrc/`),
 `models/{packing,encoder,decoder,codec}`, `native/`, `spec/` (its own
 NumPy spec codec), `corpus`, `cli`, `trace` (the encode path's spans and
 counters), `profiling` (kernel bounds and device times), `probes/` and

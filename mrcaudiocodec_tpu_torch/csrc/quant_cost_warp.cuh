@@ -1,7 +1,8 @@
 // K2's warp routine: one warp computes the exact Huffman payload of one
 // frame quantized at one gain. Shared by K2 (quant_cost.cu, a warp per
 // (frame, gain) task) and K4 (rd_loop.cu, a warp per refine candidate);
-// quant_cost.cu's note describes the design. Everything here is inlined
+// its tuple lookup and band walk also by K13 (codebook_choice.cu, a warp
+// a frame); quant_cost.cu's note describes the design. Everything here is inlined
 // into the kernel that includes it: each .cu is its own library.
 //
 // Every f32 op is a single correctly-rounded __f*_rn op and the libraries
@@ -116,12 +117,32 @@ __device__ __forceinline__ int quant_mag(float x, float inv, const float* P,
     return (int)fminf(floorf(__fadd_rn(p, magic)), (float)kQmax);
 }
 
+// one tuple's sums from its 4 magnitudes and signs: each pair of signed
+// magnitudes, clamped to [-16, 16], looked up in the pair tables pair_em
+// (CB_ESC pair length + sign bits | CB_MID length << 16) and pair_sf
+// (CB_SMALL half-symbol | flags << 4); the escape suffixes of magnitudes
+// >= 16 are added to esc. Shared by K2, K4 and K13 (codebook_choice.cu).
+__device__ __forceinline__ Sums tuple_sums(const int mag[4],
+                                           const bool neg[4],
+                                           const int* s_small,
+                                           const int* s_em,
+                                           const int* s_sf) {
+    int v[4], suffix = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        const int m16 = mag[k] < 16 ? mag[k] : 16;
+        v[k] = neg[k] ? 16 - m16 : 16 + m16;
+        suffix += esc_bits(mag[k]);
+    }
+    const int i01 = v[0] * 33 + v[1], i23 = v[2] * 33 + v[3];
+    const unsigned sf01 = s_sf[i01], sf23 = s_sf[i23];
+    return {s_small[(sf01 & 15u) * 9 + (sf23 & 15u)],
+            s_em[i01] + s_em[i23] + suffix, (sf01 | sf23) >> 4};
+}
+
 // one tuple's values: quantize its 4 bins (the step once when the tuple's
 // amp_bin agree, as they do wherever amp_bin comes from band amps), then
-// look each pair of signed magnitudes, clamped to [-16, 16], up in the pair
-// tables: pair_em (CB_ESC pair length + sign bits | CB_MID length << 16)
-// and pair_sf (CB_SMALL half-symbol | flags << 4); the escape suffixes of
-// magnitudes >= 16 are added to esc
+// its sums (tuple_sums)
 __device__ __forceinline__ Sums tuple_values(float4 xv, int4 av, int gain,
                                              const float* P, float magic,
                                              const float* s_consts,
@@ -137,18 +158,14 @@ __device__ __forceinline__ Sums tuple_values(float4 xv, int4 av, int gain,
 #pragma unroll
         for (int k = 0; k < 4; ++k) inv[k] = inv_step_of(gain, ab[k], s_consts);
     }
-    int v[4], suffix = 0;
+    int mag[4];
+    bool neg[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-        const int mag = quant_mag(xs[k], inv[k], P, magic);
-        const int m16 = mag < 16 ? mag : 16;
-        v[k] = xs[k] < 0.0f ? 16 - m16 : 16 + m16;
-        suffix += esc_bits(mag);
+        mag[k] = quant_mag(xs[k], inv[k], P, magic);
+        neg[k] = xs[k] < 0.0f;
     }
-    const int i01 = v[0] * 33 + v[1], i23 = v[2] * 33 + v[3];
-    const unsigned sf01 = s_sf[i01], sf23 = s_sf[i23];
-    return {s_small[(sf01 & 15u) * 9 + (sf23 & 15u)],
-            s_em[i01] + s_em[i23] + suffix, (sf01 | sf23) >> 4};
+    return tuple_sums(mag, neg, s_small, s_em, s_sf);
 }
 
 // the facts of lane l's tuples 8l .. 8l+7 in one frame's tuple -> band map
@@ -177,38 +194,29 @@ __device__ __forceinline__ LaneBands lane_bands(const unsigned char* band,
     return lb;
 }
 
-// The payload of one frame at one gain, warp-wide: s_x / s_amp are the
-// frame's swizzled x and amp_bin, lb the lane's band facts. Lane l quantizes
-// its 8 tuples in turn and sums each run of tuples in one band in registers
-// (a run that ends inside the lane and began inside it is a whole band);
-// one segmented scan over the lanes joins the bands that span lanes, and a
-// band's cost is added once, by the lane where it ends. Every lane gets the
-// warp's sum (integer: exact in any order).
-__device__ __forceinline__ int warp_payload(const float4* s_x,
-                                            const int4* s_amp,
-                                            const LaneBands& lb, int gain,
-                                            int lane, const float* P,
-                                            float magic,
-                                            const float* s_consts,
-                                            const int* s_small,
-                                            const int* s_em,
-                                            const int* s_sf) {
+// The band walk of one frame, warp-wide, lb the lane's band facts: lane l
+// sums its tuples 8l .. 8l+7 in turn (tuple(s), s = 0 .. 7, gives the
+// sums of tuple 8l + s) by runs of one band in registers; a run that ends
+// inside the lane and began inside it is a whole band. One segmented scan
+// over the lanes joins the bands that span lanes. Each band's sums reach
+// band_end(on, s, sums) once, with on set, in the lane where the band
+// ends, s the lane's tuple in that band; the calls with on clear are to
+// be ignored (they keep the walk free of branches). K2 and K4 add the
+// band's cost, K13 writes its codebook choice.
+template <class Tuple, class BandEnd>
+__device__ __forceinline__ void walk_bands(const LaneBands& lb, Tuple tuple,
+                                           BandEnd band_end) {
     const Sums zero = {0, 0, 0u};
-    const float4* xs = s_x + 8 * lane;
-    const int4* as = s_amp + 8 * lane;
     Sums run = zero, head = zero;
     bool first = true;
-    int cost = 0;
 #pragma unroll
     for (int s = 0; s < 8; ++s) {
-        const int q = s ^ (lane & 7);
-        run = run + tuple_values(xs[q], as[q], gain, P, magic, s_consts,
-                                 s_small, s_em, s_sf);
+        run = run + tuple(s);
         if (s < 7) {
             // a run that ends here is the head if it is the lane's
             // first, else a whole band
             const bool end = (lb.brk >> (s + 1)) & 1u;
-            cost += end && !first ? band_cost(run) : 0;
+            band_end(end && !first, s, run);
             head = pick(end && first, run, head);
             first = first && !end;
             run = pick(end, zero, run);
@@ -220,8 +228,37 @@ __device__ __forceinline__ int warp_payload(const float4* s_x,
     for (int r = 0; r < 5; ++r)
         run = pick((lb.seg >> r) & 1u, run + shfl_up(run, 1 << r), run);
     const Sums before = shfl_up(run, 1);
-    cost += first ? 0 : band_cost(head + pick(lb.cont_in, before, zero));
-    cost += lb.cont_out ? 0 : band_cost(run);
+    band_end(!first, 0, head + pick(lb.cont_in, before, zero));
+    band_end(!lb.cont_out, 7, run);
+}
+
+// The payload of one frame at one gain, warp-wide: s_x / s_amp are the
+// frame's swizzled x and amp_bin, lb the lane's band facts. Lane l
+// quantizes its 8 tuples in turn, walk_bands sums them by band, and a
+// band's cost is added once, by the lane where it ends. Every lane gets
+// the warp's sum (integer: exact in any order).
+__device__ __forceinline__ int warp_payload(const float4* s_x,
+                                            const int4* s_amp,
+                                            const LaneBands& lb, int gain,
+                                            int lane, const float* P,
+                                            float magic,
+                                            const float* s_consts,
+                                            const int* s_small,
+                                            const int* s_em,
+                                            const int* s_sf) {
+    const float4* xs = s_x + 8 * lane;
+    const int4* as = s_amp + 8 * lane;
+    int cost = 0;
+    walk_bands(
+        lb,
+        [&](int s) {
+            const int q = s ^ (lane & 7);
+            return tuple_values(xs[q], as[q], gain, P, magic, s_consts,
+                                s_small, s_em, s_sf);
+        },
+        [&](bool on, int, const Sums& sums) {
+            cost += on ? band_cost(sums) : 0;
+        });
     return __reduce_add_sync(kFull, cost);
 }
 

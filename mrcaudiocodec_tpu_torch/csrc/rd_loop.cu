@@ -125,19 +125,15 @@ __device__ __forceinline__ Sums k4_tuple(float4 xv, int amp, int gain,
                                          const int* s_sf, uint2& keep) {
     const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
     const float inv = inv_step_of(gain, amp, s_consts);
-    int v[4], m[4], suffix = 0;
+    int m[4];
+    bool neg[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
         m[k] = quant_mag(xs[k], inv, P, magic);
-        const int m16 = m[k] < 16 ? m[k] : 16;
-        v[k] = xs[k] < 0.0f ? 16 - m16 : 16 + m16;
-        suffix += esc_bits(m[k]);
+        neg[k] = xs[k] < 0.0f;
     }
     keep = make_uint2(m[0] | m[1] << 16, m[2] | m[3] << 16);
-    const int i01 = v[0] * 33 + v[1], i23 = v[2] * 33 + v[3];
-    const unsigned sf01 = s_sf[i01], sf23 = s_sf[i23];
-    return {s_small[(sf01 & 15u) * 9 + (sf23 & 15u)],
-            s_em[i01] + s_em[i23] + suffix, (sf01 | sf23) >> 4};
+    return tuple_sums(m, neg, s_small, s_em, s_sf);
 }
 
 // K2's warp_payload with a byte of amp a tuple (s_tamp, tuple order) and
@@ -153,32 +149,21 @@ __device__ __forceinline__ int k4_payload(const float4* s_x,
 #pragma unroll
     for (int i = 0; i < 6; ++i) P[i] = s_consts[i];
     const float magic = s_consts[10];
-    const Sums zero = {0, 0, 0u};
-    Sums run = zero, head = zero;
-    bool first = true;
     int cost = 0;
-#pragma unroll
-    for (int s = 0; s < 8; ++s) {
-        const int u = 8 * lane + s;
-        uint2 m;
-        run = run + k4_tuple(s_x[8 * lane + (s ^ (lane & 7))], s_tamp[u],
-                             gain, P, magic, s_consts, s_small, s_em, s_sf,
-                             m);
-        keep[kslot(u)] = m;
-        if (s < 7) {
-            const bool end = (lb.brk >> (s + 1)) & 1u;
-            cost += end && !first ? band_cost(run) : 0;
-            head = pick(end && first, run, head);
-            first = first && !end;
-            run = pick(end, zero, run);
-        }
-    }
-#pragma unroll
-    for (int r = 0; r < 5; ++r)
-        run = pick((lb.seg >> r) & 1u, run + shfl_up(run, 1 << r), run);
-    const Sums before = shfl_up(run, 1);
-    cost += first ? 0 : band_cost(head + pick(lb.cont_in, before, zero));
-    cost += lb.cont_out ? 0 : band_cost(run);
+    walk_bands(
+        lb,
+        [&](int s) {
+            const int u = 8 * lane + s;
+            uint2 m;
+            const Sums t = k4_tuple(s_x[8 * lane + (s ^ (lane & 7))],
+                                    s_tamp[u], gain, P, magic, s_consts,
+                                    s_small, s_em, s_sf, m);
+            keep[kslot(u)] = m;
+            return t;
+        },
+        [&](bool on, int, const Sums& sums) {
+            cost += on ? band_cost(sums) : 0;
+        });
     return __reduce_add_sync(kFull, cost);
 }
 

@@ -10,11 +10,12 @@
           MDCT, psycho (on the card the kernels K5-K8 around K1, which
           read the uploaded rows in place)
   device: the integer bit-reservoir budget scan over each whole row
-  device: per chunk: RD loop (the quantization-cost kernel K2), the
-          per-band codebook choice, then the record bytes (the record-pack
-          kernel K3, ops/device_pack.py), laid back to back on the card
-          in stream order: (frame, channel) within each clip, the corpus
-          batch's pad frames left out
+  device: per chunk: RD loop (the quantization-cost kernel K2 and the
+          RD loop kernel K4), the per-band codebook choice and the
+          decisions' narrow types (K13), then the record bytes (the
+          record-pack kernel K3, ops/device_pack.py), laid back to back on
+          the card in stream order: (frame, channel) within each clip, the
+          corpus batch's pad frames left out
   host:   per chunk one download of that stream body and the records'
           lengths; each clip's stream is one join of its header and its
           slice of each chunk's body
@@ -51,8 +52,8 @@ from .. import config as C
 from .. import trace
 from ..bitstream import write_header
 from ..config import CodecConfig
-from ..ops import device_pack, dsp, entropy, psycho, rd, reservoir
-from ..ops.kernels import pad_rows
+from ..ops import device_pack, dsp, psycho, rd, reservoir
+from ..ops.kernels import codebook_choice, pad_rows
 from ..utils.bits import BitWriter
 
 ENC_ROW_FRAMES = 8192               # rows x frames per device chunk
@@ -256,18 +257,16 @@ def upload_pcm(arrs: list[np.ndarray], dev, stage=None) -> PCM:
 def decide_chunk(chunk, budgets, cfg: CodecConfig):
     """One analysed chunk + its budgets [R, s] -> the compact decisions
     [q int16, amp int8, gain int16, bt int8, cb int8], each [R, s, ...],
-    on the device: the RD loop, then the per-band codebook choice."""
+    on the device: the RD loop, then the per-band codebook choice and the
+    narrow types (`codebook_choice`: K13 on a card, one launch)."""
     bt, coeffs, allowed, _ = chunk
     nch, s = bt.shape
     btf = bt.reshape(-1)
     with trace.span("mrc.decide"):
         q, amp, gain, _ = rd.rd_batch(coeffs, allowed, budgets.reshape(-1),
                                       btf, cfg.fs)
-        cb, _ = entropy.payload_costs_and_choice(q, btf, cfg.fs)
-        return [t.reshape((nch, s) + tuple(t.shape[1:])).to(dtype)
-                for t, dtype in ((q, torch.int16), (amp, torch.int8),
-                                 (gain, torch.int16), (btf, torch.int8),
-                                 (cb, torch.int8))]
+        return [t.reshape((nch, s) + tuple(t.shape[1:])) for t in
+                codebook_choice.codebook_choice(q, amp, gain, btf, cfg.fs)]
 
 
 def _analyze_rows(P: np.ndarray, nf_row, cfg: CodecConfig, dev):

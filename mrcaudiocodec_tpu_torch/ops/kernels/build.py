@@ -16,11 +16,11 @@ loads it; no normative path names it.
 Libraries go into the package's git-ignored `build/` directory at first
 use. A library is stale when its source or a csrc/*.cuh header the source
 includes (`#include "name.cuh"`: K2's warp routine in quant_cost_warp.cuh,
-which K2 and K4 share; the device xlog2 / xexp2 in xpsy_dev.cuh, which
-K5, K8 and K9 share) is newer than it. `build()` starts one nvcc per
-stale source, all at once, and returns each compiler log (`-Xptxas -v`:
-registers, shared memory, spills). A failed build raises; nothing falls
-back.
+which K2 and K4 share and whose tuple lookup and band walk K13 shares;
+the device xlog2 / xexp2 in xpsy_dev.cuh, which K5, K8 and K9 share) is
+newer than it. `build()` starts one nvcc per stale source, all at once,
+and returns each compiler log (`-Xptxas -v`: registers, shared memory,
+spills). A failed build raises; nothing falls back.
 """
 from __future__ import annotations
 
@@ -37,7 +37,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 MAIN = ("fft_stages", "quant_cost", "record_pack", "rd_loop", "transients",
         "analysis_pre", "mdct_post", "psycho", "synth_pre", "synth_post",
-        "pad_rows", "budget_scan")
+        "pad_rows", "budget_scan", "codebook_choice")
 PROBES = ("probe_fma", "probe_quant_g32", "probe_quant_bisect",
           "probe_primitives", "probe_fma_contract")
 SOURCES = MAIN + PROBES

@@ -21,7 +21,8 @@ per-band loop):
                       stream order, the rows' frame counts
     mrc.analyze       a chunk's analysis (`_analyze_chunk`)
     mrc.budget        the PE join and the bit-reservoir scan
-    mrc.decide        a chunk's RD loop and codebooks (`decide_chunk`)
+    mrc.decide        a chunk's RD loop, codebooks and narrow types
+                      (`decide_chunk`)
     mrc.pack          a chunk's record pack (`pack_chunk`)
     mrc.download      a packed chunk read back (`download_body`)
     mrc.assemble      the clips' slices, joins and headers
@@ -50,6 +51,9 @@ Counters are plain integers, always on, read by `counters()`:
                             larger than any before it
     budget.kernel           K12's launches (`reservoir.allocate` on a card:
                             one a request); the CPU's torch scan counts none
+    choice.kernel           K13's launches (`encoder.decide_chunk` on a
+                            card: one a chunk); the CPU's plain choice
+                            counts none
 """
 from __future__ import annotations
 

@@ -221,6 +221,7 @@ def test_sass_counts_parses_listing():
              "mdct_post": lib(0, 0), "psycho": lib(0, 0),
              "synth_pre": lib(0, 0), "synth_post": lib(0, 0),
              "pad_rows": lib(0, 0), "budget_scan": lib(0, 0),
+             "codebook_choice": lib(0, 0),
              "probe_fma_contract": lib(3, 0),
              "probe_quant_g32": lib(24, 20, "_Zop_probe_kernel")}
     assert fma_probe.audit_failures(audit) == []
@@ -230,6 +231,9 @@ def test_sass_counts_parses_listing():
         {k: v for k, v in audit.items() if k != "record_pack"})
     assert fma_probe.audit_failures({**audit, "rd_loop": lib(0, 1)})
     assert fma_probe.audit_failures({**audit, "budget_scan": lib(0, 1)})
+    assert fma_probe.audit_failures({**audit, "codebook_choice": lib(1, 0)})
+    assert fma_probe.audit_failures(
+        {k: v for k, v in audit.items() if k != "codebook_choice"})
     assert fma_probe.audit_failures(
         {k: v for k, v in audit.items() if k != "rd_loop"})
     assert fma_probe.audit_failures({**audit, "psycho": lib(0, 1)})

@@ -19,8 +19,11 @@ span outside all of them and of the request outside the top span, beside
 the request's wall less the stages' (as `entry_self_ms` reads it); the
 runtime calls that put work on the card inside each `mrc.budget` span,
 which must be two (the PE join, a kernel or for one chunk a copy on the
-card, and K12), and `budget.kernel` counted once a request; and the change
-of the codec's counters. It exits 1 when a budget check fails.
+card, and K12), and `budget.kernel` counted once a request; the kernels
+on the card behind each `mrc.decide` span, which must be K2 twice, K4 and
+K13, and `choice.kernel` counted once a chunk (a `mrc.decide` span); and
+the change of the codec's counters. It exits 1 when a budget or decide
+check fails.
 
 `cost` times calls with the codec's tracing on and off, no profiler
 running: `--sets` sets of `--calls` calls a side, the sides in turns, the
@@ -42,6 +45,9 @@ TOP = ("mrc.encode", "mrc.encode_batch")
 STAGES = ("mrc.analyze", "mrc.budget", "mrc.decide", "mrc.pack",
           "mrc.download")
 ENTRY = ("mrc.pad", "mrc.order", "mrc.upload", "mrc.assemble")
+# the kernels a mrc.decide span puts on the card, by name, and how many
+DECIDE = {"quant_cost_kernel": 2, "rd_loop_kernel": 1,
+          "codebook_choice_kernel": 1}
 
 
 def card() -> str:
@@ -185,10 +191,20 @@ def check_spans(cell: str, seed: int, requests: int, device: str,
                                          or "Memcpy" in name))
               for a, b in spans.get("mrc.budget", [])]
     k12 = (after.get("budget.kernel", 0) - before.get("budget.kernel", 0)) / n
+    # the kernels on the card behind each mrc.decide span: K2 twice (the
+    # inner sweep), K4 and K13
+    named = [(name, start[corr]) for name, _, _, corr in t.device
+             if corr in start]
+    decide = [{k: sum(a <= s <= b and k in name for name, s in named)
+               for k in DECIDE} for a, b in spans.get("mrc.decide", [])]
+    k13 = after.get("choice.kernel", 0) - before.get("choice.kernel", 0)
     return {
         "budget_device_calls": budget, "budget_kernel_a_request": k12,
         "budget_ok": len(budget) == n and all(len(b) == 2 for b in budget)
         and k12 == 1,
+        "decide_kernels": decide, "choice_kernel_a_request": k13 / n,
+        "decide_ok": len(decide) > 0 and k13 == len(decide)
+        and all(d == DECIDE for d in decide),
         "requests": n, "nested": nested(spans),
         "k2_k4_by_span": by_span(spans, dev(
             lambda s: "quant_cost" in s or "rd_loop" in s), n),
@@ -256,7 +272,8 @@ def main(argv=None) -> int:
     out.update(mode=args.mode, workload=args.workload, seed=args.seed,
                card=card())
     print(json.dumps(out), flush=True)
-    return 0 if out.get("budget_ok", True) else 1
+    return 0 if out.get("budget_ok", True) and out.get("decide_ok",
+                                                        True) else 1
 
 
 if __name__ == "__main__":
