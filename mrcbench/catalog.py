@@ -13,7 +13,9 @@ mix, cell and metric.
                               layer, moves; workloads (the cells that
                               report it; all cells where absent)
 
-Adding a cell, a mix or a metric is adding its file.
+Adding a cell, a mix or a metric is adding its file. A new cell brings the
+files of its own metrics, end-to-end ones included, each listing it in
+`workloads` (as `corpus_rtf` is the batch's), so no file on disk changes.
 """
 from __future__ import annotations
 

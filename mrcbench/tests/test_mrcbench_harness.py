@@ -133,6 +133,13 @@ def test_new_cell_mix_and_metric_are_found_from_new_files(tmp_path):
     (tmp_path / "workloads" / "clip10s.encode.json").write_text(json.dumps(
         {"config": "clip30s_44k1_stereo_128k",
          "traffic": "music_encode_short", "chips": 1, "why": "a test"}))
+    # its own end-to-end metrics, as `corpus_rtf` is the batch's: the
+    # clip's files with this cell in `workloads`
+    for name, like in (("clip10s_rtf", "encode_rtf"),
+                       ("clip10s_p95_ms", "encode_p95_ms")):
+        (tmp_path / "metrics" / f"{name}.json").write_text(json.dumps(
+            dict(json.loads((tmp_path / "metrics" / f"{like}.json")
+                            .read_text()), workloads=["clip10s.encode"])))
     (tmp_path / "metrics" / "clip10s.budget_host_ms.json").write_text(
         json.dumps({"kind": "per_layer", "layer": "budget", "unit": "ms",
                     "better": "lower", "source": "program_span",
@@ -145,9 +152,13 @@ def test_new_cell_mix_and_metric_are_found_from_new_files(tmp_path):
     assert cell["traffic"]["distinct_clips"] == 3
     assert [m["name"] for m in cat.metrics("clip10s.encode", "per_layer")] \
         == ["clip10s.budget_host_ms"]
-    assert "setup_s" in [m["name"] for m in
-                         cat.metrics("clip10s.encode", "end_to_end")]
+    e2e = {"clip10s_rtf", "clip10s_p95_ms", "setup_s"}
+    assert {m["name"] for m in
+            cat.metrics("clip10s.encode", "end_to_end")} == e2e
     assert all(p.read_bytes() == b for p, b in before.items())
+    res, _ = rehearse("clip10s.encode", cat=cat)
+    assert res["correct"] and set(res["metrics"]) == e2e
+    assert all(m["value"] > 0 for m in res["metrics"].values())
     res, _ = rehearse("clip10s.encode", trace=True, cat=cat)
     assert res["correct"] and "clip10s.budget_host_ms" in res["metrics"]
 
@@ -165,6 +176,12 @@ def test_result_line_has_the_contract_keys(cell, trace):
     kind = "per_layer" if trace else "end_to_end"
     names = {m["name"] for m in Catalog().metrics(cell, kind)}
     assert set(res["metrics"]) <= names
+    if trace and cell == "clip30s.encode":
+        # the clip's staging copy, `encoder.stage_pcm`, runs on every path;
+        # its pad runs as K11's plain version here, so the pad metric, which
+        # reads K11's launcher, finds no call on the CPU
+        assert res["metrics"]["clip.entry_stage_host_ms"]["value"] > 0
+        assert "clip.entry_pad_host_ms" not in res["metrics"]
     if not trace:
         # on the CPU every end-to-end metric is read; the device ones are
         # left out, never written as 0
@@ -415,6 +432,15 @@ def test_a_short_run_on_the_card_is_correct(card):
     res, _ = harness.run_cell("clip30s.encode", SEED, 1.0, False, card, 0.0,
                               overrides=tiny("clip30s.encode"))
     assert res["correct"] and res["device"]["platform"] == "gpu"
+
+
+@pytest.mark.cuda
+def test_a_traced_run_on_the_card_reads_the_clips_pad_and_stage(card):
+    res, _ = harness.run_cell("clip30s.encode", SEED, 1.0, True, card, 0.0,
+                              overrides=tiny("clip30s.encode"))
+    assert res["correct"]
+    for name in ("clip.entry_pad_host_ms", "clip.entry_stage_host_ms"):
+        assert res["metrics"][name]["value"] > 0
 
 
 @pytest.mark.cuda
